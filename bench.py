@@ -1,17 +1,19 @@
 #!/usr/bin/env python
-"""Headline benchmark: final-one-weekend at 1200x675 on one TPU chip.
+"""Headline throughput: final-one-weekend at 1200x675 on one device.
 
 Prints ONE JSON line:
-  {"metric": "mrays_per_sec", "value": N, "unit": "Mrays/s", "vs_baseline": N/500}
+  {"metric": "mrays_per_sec", "value": N, "unit": "Mrays/s",
+   "device": {"platform": ..., "kind": ..., "count": ...}}
 
-The baseline target is >=500 Mrays/s per v5e chip (BASELINE.md).  Timing
-excludes the first batch (compile); rays are counted exactly on device
-(sum of alive lanes per bounce — primary + secondary rays actually traced).
+Timing excludes the first batch (compile); rays are counted exactly on
+device (sum of alive lanes per bounce — primary + secondary rays actually
+traced).  The line names the device it ran on; a number from a CPU run is
+not a device measurement.
 
 Env knobs:
-  BENCH_SCENE   (default final-one-weekend.json)
+  BENCH_SCENE   (default final-one-weekend.json, read from assets/)
   BENCH_WIDTH/BENCH_HEIGHT (default 1200x675)
-  BENCH_BATCHES (default 4 timed batches; scene cap applies)
+  BENCH_BATCHES (default 4 timed batches after one warm-up batch)
 """
 
 import json
@@ -26,26 +28,23 @@ def main():
     scene_name = os.environ.get("BENCH_SCENE", "final-one-weekend.json")
     width = int(os.environ.get("BENCH_WIDTH", 1200))
     height = int(os.environ.get("BENCH_HEIGHT", 675))
-    # 24 batches fuse into one megakernel dispatch per chunk: the
-    # divergence tail amortizes over the whole chunk (162 vs 150 Mrays/s
-    # at 12), which is how a long production render would run.
-    n_timed = int(os.environ.get("BENCH_BATCHES", 24))
+    n_timed = int(os.environ.get("BENCH_BATCHES", 4))
 
+    import jax
+
+    from raytrace_tpu.engine import Renderer
     from raytrace_tpu.models import compile_scene
     from raytrace_tpu.scene_file import SceneFile
-    from raytrace_tpu.engine import Renderer
+    from raytrace_tpu.utils.paths import asset
 
-    path = os.path.join("/root/reference/assets", scene_name)
-    if not os.path.exists(path):
-        path = scene_name
+    path = scene_name if os.path.exists(scene_name) else asset(scene_name)
     sf = SceneFile.load_json(path)
-    sf.render.sample_batches = max(sf.render.sample_batches, 2 * n_timed)
+    sf.render.sample_batches = max(sf.render.sample_batches, n_timed + 1)
 
     cs = compile_scene(sf, width=width, height=height)
     r = Renderer(cs)
 
-    # First chunk: compile + warm-up (excluded from the measurement).
-    r.render_batches(n_timed)
+    r.render_batches(1)  # compile + warm-up (excluded from the measurement)
 
     t0 = time.perf_counter()
     rays0 = r.stats.rays_traced
@@ -53,12 +52,13 @@ def main():
     dt = time.perf_counter() - t0
     rays = r.stats.rays_traced - rays0
 
-    mrays = rays / dt / 1e6 if dt > 0 else 0.0
+    dev = jax.devices()[0]
     print(json.dumps({
         "metric": "mrays_per_sec",
-        "value": round(mrays, 3),
+        "value": rays / dt / 1e6 if dt > 0 else 0.0,
         "unit": "Mrays/s",
-        "vs_baseline": round(mrays / 500.0, 4),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }))
 
 

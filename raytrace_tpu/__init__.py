@@ -1,8 +1,8 @@
-"""raytrace_tpu — a TPU-native wavefront path tracer.
+"""raytrace_tpu — a wavefront path tracer in JAX.
 
 A from-scratch reimplementation of the capabilities of
 hackmad/raytracing-vulkan-rs (a Vulkan KHR ray-tracing-pipeline path tracer)
-as an idiomatic JAX/XLA/Pallas framework for TPU:
+as a JAX/XLA/Pallas framework whose accelerator is an NVIDIA GPU:
 
 - ``scene_file``: JSON scene schema, bit-compatible with the reference.
 - ``models``:     geometry — tessellators, OBJ import, scene compiler → SoA.
@@ -10,8 +10,9 @@ as an idiomatic JAX/XLA/Pallas framework for TPU:
                   intersection, materials, textures, sky, NEE/MIS.
 - ``engine``:     the render engine — jit'd wavefront batch step, progressive
                   accumulation, checkpoint/resume, metrics.
-- ``parallel``:   multi-chip sharding of the ray wavefront over a device mesh.
-- ``utils``:      image IO, colour conversion, profiling.
+- ``parallel``:   multi-device sharding of the ray wavefront over a mesh.
+- ``platform``:   which platform the arrays live on and which sweeps run.
+- ``utils``:      image IO, colour conversion, profiling, paths, cache.
 - ``tools``:      scene generators (final-one-weekend etc.).
 
 The reference's raygen/closest-hit/miss shader split, descriptor sets, SBT
@@ -21,5 +22,3 @@ on device with no host round-trips per bounce.
 """
 
 __version__ = "0.1.0"
-
-from .options import KernelOptions  # noqa: E402  (public API)

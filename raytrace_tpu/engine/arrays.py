@@ -54,13 +54,6 @@ class SceneArrays(NamedTuple):
     atlas: jnp.ndarray
     atlas_wh: jnp.ndarray
     srgb_lut: jnp.ndarray
-    # Image 0's texels, sRGB-decoded to linear f32 and flattened to
-    # [AH*AW, 3] at upload: the deferred-image post-pass is then ONE f32
-    # gather on the kernel-recorded texel index (megakernel._texel_factor)
-    # — gathering uint8 [n,3] + LUT-decoding inside the hot chunk built a
-    # pathologically tiled s32 copy that OOM'd at 8M items.  [1, 3] dummy
-    # for image-free scenes.
-    atlas_flat: jnp.ndarray
     # materials
     lamb_albedo: jnp.ndarray
     metal_albedo: jnp.ndarray
@@ -105,7 +98,7 @@ class SceneStatic:
     width: int
     height: int
     # BVH geometry ("none" → brute-force tracer)
-    bvh_mode: str = "none"        # "none" | "implicit" | "sah" | "paged"
+    bvh_mode: str = "none"        # "none" | "implicit" | "sah"
     bvh_num_leaves: int = 0
     bvh_leaf_size: int = 4
     bvh_stack_depth: int = 0
@@ -113,30 +106,10 @@ class SceneStatic:
     # shading / sphere fast paths
     use_fat_shading: bool = False
     sphere_world_mode: bool = False
-    # fused Pallas sphere sweep (TPU; interpret-mode on CPU for tests)
+    # fused Pallas-Triton sphere/triangle sweeps (ops/pallas_sweep.py,
+    # ops/pallas_tri_sweep.py); interpret mode only when a test asks
     use_pallas_sweep: bool = False
     pallas_interpret: bool = False
-    # whole-bounce-loop fused kernel (ops/megakernel.py); implies the
-    # pallas-sweep preconditions and megakernel_supported()
-    use_megakernel: bool = False
-    # sphere-block split for the selective sweep (models/sphere_order.py):
-    # [0, sph_prefix) dense "global" spheres, rest greedy-clustered
-    sph_prefix: int = 0
-    # Fused animated megakernel (ops/megakernel MegaConfig.anim_lerp):
-    # sphere-only linear motion is lerped IN-KERNEL from endpoint+delta
-    # tables (ops/spheres.world_sphere_anim_tables), so k progressive
-    # batches fuse into one kernel call exactly like static scenes — the
-    # TPU answer to the reference's per-batch TLAS refit + fence
-    # (acceleration.rs:91-115).  Set by the Renderer after its
-    # eligibility checks (linearity, no tris/lights/images, world mode).
-    anim_fuse: bool = False
-    # triangle-block cluster size (models/sphere_order.apply_triangle_order):
-    # consecutive runs of tri_cluster_g triangles are spatially tight for
-    # the megakernel's tri-gather sweep.  0 = file order (dense sweep).
-    tri_cluster_g: int = 0
-    # public kernel-strategy knobs (options.KernelOptions, env overrides
-    # already folded in); None until a Renderer attaches them
-    kernel_options: object = None
     # scene sharding (parallel/multichip.py "sc" mesh axis): primitive
     # tables are row-sharded across scene_shards devices; the bounce
     # loop combines per-shard closest hits with lax.pmin over scene_axis
@@ -175,9 +148,6 @@ def upload_scene(cs: CompiledScene, bvh=None, sharding=None):
         noise_scale=f32(cs.noise_scale),
         atlas=jnp.asarray(cs.atlas, jnp.uint8), atlas_wh=i32(cs.atlas_wh),
         srgb_lut=f32(srgb_u8_to_linear_lut()),
-        atlas_flat=f32(srgb_u8_to_linear_lut()[
-            cs.atlas[0].reshape(-1, 3).astype(np.int32)]
-            if n_image else np.zeros((1, 3), np.float32)),
         lamb_albedo=i32(cs.lamb_albedo),
         metal_albedo=i32(cs.metal_albedo), metal_fuzz=i32(cs.metal_fuzz),
         diel_ri=f32(cs.diel_ri), light_emit=i32(cs.light_emit),
@@ -222,7 +192,5 @@ def upload_scene(cs: CompiledScene, bvh=None, sharding=None):
         bvh_stack_depth=int(bvh.depth + 2) if bvh is not None else 0,
         bvh_root=int(bvh.root) if bvh is not None else 0,
         use_fat_shading=cs.shade_rows is not None,
-        sph_prefix=int(getattr(cs, "sph_prefix", 0)),
-        tri_cluster_g=int(getattr(cs, "tri_cluster_g", 0)),
     )
     return arrays, static

@@ -15,10 +15,10 @@ row tile:
      image ((batch*prev + new)/(batch+1), ray_gen.glsl:597-603).
 
 LAYOUT RULE: every per-ray vector on the hot path is a V3 — three 1-D [R]
-component arrays (ops/vec3.py).  [R,3] arrays tile-pad their minor dim
-3 -> 128 on TPU, a 42x bandwidth/memory blowup measured straight off the
-XLA allocation dump; 1-D arrays don't pad at all.  [R,3]/[R,k] shapes are
-allowed only at compile-time boundaries and in the CPU-only fallback paths.
+component arrays (ops/vec3.py).  Each component is contiguous, so fused
+elementwise kernels read it with unit stride and the Pallas sweeps take the
+components as they are.  [R,3]/[R,k] shapes are allowed only at
+compile-time boundaries and in the fallback paths.
 """
 
 from __future__ import annotations
@@ -125,30 +125,13 @@ def make_trace_fn(static: SceneStatic, scene: SceneArrays,
     world_p = geom.world_p
     s_pad = scene.sph_center.shape[0]
 
-    paged_tabs = None
-    if use_tris and static.bvh_mode == "paged":
-        # Page tables ride BatchGeometry (host-precomputed for static
-        # scenes, per-batch refit for animated ones); tw is a host
-        # constant keyed by the static triangle count.
-        from ..ops.pallas_paged_tri import build_page_valid
-
-        _tw = jnp.asarray(build_page_valid(static.num_triangles))
-        paged_tabs = (_tw, geom.tri_psieve, geom.tri_pageG)
-
     def trace(o: V3, d: V3, alive) -> RawHit:
         R = o.x.shape[0]
         t_best = jnp.full((R,), T_MAX, jnp.float32)
 
         tri_hit = None
         if use_tris:
-            if static.bvh_mode == "paged":
-                from ..ops.pallas_paged_tri import intersect_tris_paged
-
-                tri_hit = intersect_tris_paged(
-                    o, d, *paged_tabs, active=alive,
-                    interpret=static.pallas_interpret,
-                )
-            elif static.bvh_mode == "sah":
+            if static.bvh_mode == "sah":
                 from ..ops.bvh import BVHArrays, pack_world_tris, traverse_sah
 
                 v0, e1, e2 = pack_world_tris(world_p)
@@ -295,9 +278,7 @@ def _sc_fetch(static: SceneStatic, mine, rows):
 def _direct_normals(static) -> bool:
     """World-mode uniform spheres whose scenes never read sphere UVs
     (image textures need the object-space parameterization): the normal
-    is (hit - c_world) * inv_r_world — identical math in the wavefront
-    and the megakernel, so bitwise parity between the two is preserved
-    while the kernel's one-hot fetch drops the 12 w2o rows."""
+    is (hit - c_world) * inv_r_world, with no object-space transform."""
     return bool(static.sphere_world_mode and static.use_fat_shading
                 and not static.flags.has_image)
 
@@ -342,20 +323,25 @@ def reconstruct_hit(static: SceneStatic, scene: SceneArrays,
         else:
             w = 1.0 - raw.bu - raw.bv
             bary = jnp.stack([w, raw.bu, raw.bv], axis=-1)
+            # HIGHEST: an f32 contraction may otherwise run in TF32 on
+            # the GPU, which moves hit points off the surface.
+            hp = jax.lax.Precision.HIGHEST
             tp_r = jnp.einsum("rv,rvi->ri", bary,
-                              _sc_fetch(static, mine, geom.world_p[tri]))
+                              _sc_fetch(static, mine, geom.world_p[tri]),
+                              precision=hp)
             tn_r = jnp.einsum("rv,rvi->ri", bary,
-                              _sc_fetch(static, mine, geom.world_n[tri]))
+                              _sc_fetch(static, mine, geom.world_n[tri]),
+                              precision=hp)
             tuv = jnp.einsum("rv,rvi->ri", bary,
-                             _sc_fetch(static, mine, scene.tri_uv[tri]))
+                             _sc_fetch(static, mine, scene.tri_uv[tri]),
+                             precision=hp)
             tp = vec3.from_rows(tp_r)
             tn = vec3.from_rows(tn_r)
             tu, tv = tuv[:, 0], tuv[:, 1]
 
     if static.has_spheres:
         if rows is not None and _direct_normals(static):
-            # Slots 44:48 carry WORLD c/r (prepare_batch): direct normal,
-            # op-for-op identical to the megakernel's direct path.
+            # Slots 44:48 carry WORLD c/r (prepare_batch): direct normal.
             c = V3(rows[:, 44], rows[:, 45], rows[:, 46])
             r = rows[:, 47]
             sp = ray_o + raw.t * ray_d
@@ -693,19 +679,6 @@ def render_tile(
     chip); otherwise the per-sample SUM is returned for a cross-chip psum.
     Returns (tile [rows, W, 3], rays-traced count).
     """
-    # Fused whole-loop kernel path.  A runtime max_depth override (traced)
-    # can't specialize the in-kernel fori bound, so it falls back to the
-    # XLA wavefront below.
-    if static.use_megakernel and max_depth is None:
-        from ..ops.megakernel import render_tile_mega
-
-        tile, rays, _tp, _it = render_tile_mega(
-            static, scene, geom, cam, sample_batch, row0, rows_per_tile,
-            use_dof, spp_local=spp_local, sample_base=sample_base,
-            reduce_mean=reduce_mean, interpret=static.pallas_interpret,
-        )
-        return tile, rays
-
     W = static.width
     sqrt_spp = static.sqrt_spp
     spp = sqrt_spp * sqrt_spp
@@ -747,28 +720,16 @@ class BatchGeometry(NamedTuple):
     world_n: jnp.ndarray
     sph_w2o: jnp.ndarray    # [S,3,4] world-to-object per sphere
     sph_table: jnp.ndarray  # [S,5] world c/r/k (host-precomputed per batch)
-    sph_table8: jnp.ndarray # [S8,8] kernel-layout table for the Pallas sweep
-    sph_bounds8: jnp.ndarray  # [C,8] conservative 8-sphere cluster bounds
-    tri_table16: jnp.ndarray # [T8,16] v0/e1/e2 triangles (Pallas sweep + attrs)
-    tri_attr16: jnp.ndarray  # [T8,16] n0/dn1/dn2/uv0/duv1/duv2 (hit attrs)
+    sph_table8: jnp.ndarray # [S2,8] sphere table for the Pallas sweep
+    tri_table16: jnp.ndarray # [T2,16] v0/e1/e2 triangles (Pallas sweep + attrs)
+    tri_attr16: jnp.ndarray  # [T2,16] n0/dn1/dn2/uv0/duv1/duv2 (hit attrs)
     prim_rows: jnp.ndarray  # [P,64] combined per-primitive rows (fat path)
     inst_o2w_rows: jnp.ndarray  # [I,12] objectToWorld rows (NEE fetch)
-    # Fused animated megakernel (static.anim_fuse): per-sphere motion
-    # delta rows [S8,8] — cols 0:3 dc = c1-c0, col 4 k1 = 2*c0.dc,
-    # col 5 k2 = |dc|^2 (ops/spheres.world_sphere_anim_tables).  Zeros
-    # ([8,8]) everywhere else.
-    sph_dtab8: jnp.ndarray = None
-    # Paged triangle sweep (static.bvh_mode == "paged"): page tables
-    # [NP,9G,128] / [NP,128,8] (ops/pallas_paged_tri.build_page_tables);
-    # None on every other path.
-    tri_pageG: jnp.ndarray = None
-    tri_psieve: jnp.ndarray = None
 
 
 def prepare_batch(static: SceneStatic, scene: SceneArrays,
                   batch_time: jnp.ndarray,
-                  sph_table=None, sph_dtab=None,
-                  paged_tabs=None) -> BatchGeometry:
+                  sph_table=None) -> BatchGeometry:
     """Interpolate instance transforms to the batch ray time and re-transform
     the triangle soup — the replacement for the reference's per-batch TLAS
     refit (acceleration.rs:91-115).  One jit'd call per batch.
@@ -791,16 +752,12 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
         sph_w2o = jnp.zeros((scene.sph_center.shape[0], 3, 4), jnp.float32)
     if sph_table is None:
         sph_table = jnp.zeros((scene.sph_center.shape[0], 5), jnp.float32)
-    if static.use_pallas_sweep:
+    if static.use_pallas_sweep and static.has_spheres:
         from ..ops.pallas_sweep import pad_table8
 
         sph_table8 = pad_table8(jnp.asarray(sph_table))
-        from ..ops.spheres import cluster_bounds_from_table8
-
-        sph_bounds8 = cluster_bounds_from_table8(sph_table8, group=64)
     else:
         sph_table8 = jnp.zeros((8, 8), jnp.float32)
-        sph_bounds8 = jnp.zeros((1, 8), jnp.float32)
 
     if static.use_pallas_sweep and static.has_tris and static.bvh_mode == "none":
         from ..ops.pallas_tri_sweep import pack_tri_table
@@ -850,18 +807,10 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
         if _direct_normals(static):
             # World-mode uniform spheres without sphere UVs: slots
             # 44:48 carry the per-batch WORLD center/radius and the
-            # normal is computed directly from them (reconstruct_hit /
-            # megakernel) — the 12 w2o slots stay zero and drop out of
-            # the kernel's one-hot fetch.
+            # normal is computed directly from them (reconstruct_hit);
+            # the 12 w2o slots stay zero.
             rows = rows.at[:s_pad, 44:47].set(sph_table[:s_pad, 0:3])
             rows = rows.at[:s_pad, 47].set(sph_table[:s_pad, 3])
-            if sph_dtab is not None:
-                # Fused animated kernel: slots 49:52 carry the center
-                # motion delta, lerped at the sample's batch time in the
-                # kernel's normal reconstruction (megakernel _SLOT_DC).
-                # Slots 49+ are free here: anim_fuse excludes triangles
-                # (_SLOT_TRIN shares 49).
-                rows = rows.at[:s_pad, 49:52].set(sph_dtab[:s_pad, 0:3])
         else:
             rows = rows.at[:s_pad, 32:44].set(sph_w2o.reshape(s_pad, 12))
             rows = rows.at[:s_pad, 44:47].set(scene.sph_center)
@@ -875,26 +824,11 @@ def prepare_batch(static: SceneStatic, scene: SceneArrays,
     I = scene.inst_t0.shape[0]
     inst_o2w_rows = inst_mats.object_to_world.reshape(I, 12)
 
-    sph_dtab8 = (jnp.asarray(sph_dtab, jnp.float32) if sph_dtab is not None
-                 else jnp.zeros((8, 8), jnp.float32))
-    tri_pageG = tri_psieve = None
-    if static.has_tris and static.bvh_mode == "paged":
-        if paged_tabs is not None:
-            # static scenes: host-precomputed at Renderer init (the
-            # layout transpose of a 2M-tri table costs seconds on-device)
-            tri_pageG, tri_psieve = paged_tabs
-        else:
-            from ..ops.pallas_paged_tri import build_page_tables
-
-            tri_pageG, tri_psieve = build_page_tables(
-                world_p, static.num_triangles)
     return BatchGeometry(inst_mats=inst_mats, world_p=world_p, world_n=world_n,
                          sph_w2o=sph_w2o, sph_table=jnp.asarray(sph_table),
-                         sph_table8=sph_table8, sph_bounds8=sph_bounds8,
-                         tri_table16=tri_table16,
+                         sph_table8=sph_table8, tri_table16=tri_table16,
                          tri_attr16=tri_attr16, prim_rows=prim_rows,
-                         inst_o2w_rows=inst_o2w_rows, sph_dtab8=sph_dtab8,
-                         tri_pageG=tri_pageG, tri_psieve=tri_psieve)
+                         inst_o2w_rows=inst_o2w_rows)
 
 
 def render_tile_step(
@@ -911,10 +845,10 @@ def render_tile_step(
 ):
     """One jit'd dispatch: render a tile of pixel rows for one batch.
 
-    Kept to a bounded ray count per dispatch — the moral equivalent of the
-    reference's <=64 spp / <=32 batch guidance against GPU timeouts
-    (ray_gen.glsl:68-74); long-running single dispatches can trip device
-    watchdogs here too.
+    Kept to a bounded ray count per dispatch (engine.renderer.RAY_BUDGET)
+    — the moral equivalent of the reference's <=64 spp / <=32 batch
+    guidance against GPU timeouts (ray_gen.glsl:68-74), which also bounds
+    the wavefront's working set.
     """
     if trace_builder is None:
         trace_fn = make_trace_fn(static, scene, geom)

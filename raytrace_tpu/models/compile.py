@@ -182,26 +182,13 @@ class CompiledScene:
 
     # --- bookkeeping for tests / tooling ---
     mesh_names: List[str] = field(default_factory=list)
-    # Per-instance soup offsets.  INVALIDATED (set to None) once triangle
-    # clustering permutes the soup (sphere_order.apply_triangle_order):
-    # the offsets would no longer delimit contiguous per-mesh runs.
+    # Per-instance soup offsets (contiguous per-mesh runs in file order).
     mesh_tri_offsets: Optional[np.ndarray] = None
 
     # --- pre-resolved per-primitive shading rows (models/shading_table.py)
     # Row i: sphere i; row S_pad + j: triangle j.  None when the material
     # graph doesn't fit the fat-row encoding (fallback to registry path).
     shade_rows: Optional[np.ndarray] = None  # [S_pad + T_pad, 32]
-
-    # --- sphere-block layout (models/sphere_order.py) ---
-    # First sph_prefix spheres are "global" (swept densely); the rest are
-    # Morton-ordered so consecutive 8/16-sphere clusters are spatially tight
-    # for the megakernel's selective sweep.  0 = unordered.
-    sph_prefix: int = 0
-
-    # --- triangle-block layout (models/sphere_order.py) ---
-    # Triangles grouped into greedy spatial clusters of this size for the
-    # megakernel's tri-gather sweep.  0 = file order (dense sweep).
-    tri_cluster_g: int = 0
 
 
 def _resolve_texture_registries(scene: SceneFile):
@@ -277,7 +264,12 @@ def _load_image_atlas(paths: List[str]):
     if not paths:
         return np.zeros((1, 1, 1, 3), np.uint8), np.ones((1, 2), np.int32)
 
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise SceneError(
+            "image textures need the Pillow package (PIL) to decode "
+            f"{paths[0]}") from e
 
     imgs = []
     for p in paths:
@@ -595,11 +587,4 @@ def compile_scene(scene: SceneFile, width: Optional[int] = None,
         mesh_tri_offsets=np.asarray(soup_offsets, np.int64),
         shade_rows=shade_rows,
     )
-
-    # Spatial sphere ordering for the megakernel's selective sweep
-    # (image-invariant: sphere ids are internal).
-    from .sphere_order import apply_sphere_order, apply_triangle_order
-
-    apply_sphere_order(cs)
-    apply_triangle_order(cs)
     return cs

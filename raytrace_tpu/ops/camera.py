@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -105,7 +106,9 @@ def get_rays(state, cam: CameraArrays, px, py, si, sj, width, height, sqrt_spp,
     )
     from .vec import normalize as _nrm
     tnorm = _nrm(target)
-    direction = tnorm @ vi[:3, :3].T  # w=0 rotate into world
+    # HIGHEST: an f32 product may otherwise run in TF32 on the GPU.
+    hp = jax.lax.Precision.HIGHEST
+    direction = jnp.matmul(tnorm, vi[:3, :3].T, precision=hp)  # w=0 rotate
 
     def with_dof(state):
         focal_point = cam.focal_length * tnorm  # camera space
@@ -118,7 +121,7 @@ def get_rays(state, cam: CameraArrays, px, py, si, sj, width, height, sqrt_spp,
              jnp.zeros_like(d[..., 0])],
             axis=-1,
         )
-        fp_world = focal_point @ vi[:3, :3].T + vi[:3, 3]
+        fp_world = jnp.matmul(focal_point, vi[:3, :3].T, precision=hp) + vi[:3, 3]
         dirn = fp_world - o
         dirn = _nrm(dirn)
         return state, o, dirn

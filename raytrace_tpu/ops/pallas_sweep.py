@@ -1,19 +1,22 @@
-"""Fused Pallas sphere-sweep kernel.
+"""Fused ray x sphere closest-hit sweep, written for Pallas-Triton.
 
-The XLA version of the dense sphere test (ops/spheres.intersect_spheres_world)
-materializes ~10 [C, R] intermediates through HBM per bounce; with C=512
-(final-one-weekend) that is several GB per iteration and dominates the
-frame.  This kernel fuses the whole sweep — quadratic setup, both roots,
-range tests and the running arg-min — inside VMEM: HBM traffic drops to
-rays in (24 B/ray) + (t, id) out (8 B/ray), and the sweep becomes VPU
-compute-bound.
+The XLA sweep (ops/spheres.intersect_spheres_world) writes [chunk, R]
+intermediates through device memory for every 128-sphere chunk.  This
+kernel keeps the whole sweep in registers: one program owns BLOCK rays
+(one per thread across NUM_WARPS warps), walks the sphere table in
+chunks of CHUNK rows with the quadratic, both roots, the range tests and
+a running arg-min fused, and writes only (t, id).  Device-memory traffic
+drops to the rays in (24 B/ray) and the result out (8 B/ray); the sphere
+table (32 B/row) stays resident in L2 across programs.
 
-Layout choices (see pallas_guide.md):
-- rays ride the LANE axis: o/d arrive as [3, R] so a block is [3, B];
-- spheres ride the SUBLANE axis in chunks of 8: the sphere table is
-  [S, 8] f32 (c.xyz, r, k, pad3) and a chunk view is [8, 8] → broadcast
-  against [1, B] ray rows gives [8, B] tiles, a perfect (8, 128) fit;
-- the chunk loop is a fori over S/8 with VMEM-resident carry.
+Layout:
+- rays arrive as six 1-D [R] components (the wavefront's V3 layout), R
+  padded to a multiple of BLOCK;
+- the sphere table is [S, 8] f32 rows (cx cy cz r k pad3) with S a power
+  of two (Triton block shapes are powers of two); padding rows have r=0
+  and k=3e37 and never hit;
+- the running best is a [CHUNK, BLOCK] tile folded to one winner per ray
+  after the loop: lowest id among equal t, as in the XLA sweep.
 """
 
 from __future__ import annotations
@@ -23,42 +26,42 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from .intersect import T_MAX, T_MIN
 
-BLOCK = 2048  # rays per grid cell (lanes); multiple of 128
+BLOCK = 128      # rays per program
+CHUNK = 8        # table rows tested per loop step
+NUM_WARPS = 4    # one ray per thread
 
 
-def _sweep_kernel(table_ref, o_ref, d_ref, t_ref, id_ref, *, n_chunks: int,
-                  t_min: float, t_max: float):
-    ox = o_ref[0:1, :]
-    oy = o_ref[1:2, :]
-    oz = o_ref[2:3, :]
-    dx = d_ref[0:1, :]
-    dy = d_ref[1:2, :]
-    dz = d_ref[2:3, :]
+def table_rows(n: int) -> int:
+    """Padded table row count: a power of two, at least CHUNK."""
+    return max(CHUNK, 1 << max(0, int(n) - 1).bit_length())
 
-    d_dot_o = dx * ox + dy * oy + dz * oz          # [1,B]
-    a = dx * dx + dy * dy + dz * dz
-    o_sq = ox * ox + oy * oy + oz * oz
+
+def _sphere_kernel(tab_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
+                   t_ref, id_ref, *, n_chunks: int, t_min: float,
+                   t_max: float):
+    ox, oy, oz = ox_ref[...], oy_ref[...], oz_ref[...]
+    dx, dy, dz = dx_ref[...], dy_ref[...], dz_ref[...]
+    d_dot_o = (dx * ox + dy * oy + dz * oz)[None, :]
+    a = (dx * dx + dy * dy + dz * dz)[None, :]
+    o_sq = (ox * ox + oy * oy + oz * oz)[None, :]
     inv_a = 1.0 / jnp.where(a == 0.0, 1.0, a)
-
-    B = ox.shape[1]
+    ox, oy, oz = ox[None, :], oy[None, :], oz[None, :]
+    dx, dy, dz = dx[None, :], dy[None, :], dz[None, :]
 
     def chunk(ci, carry):
         best_t, best_id = carry
-        tb = table_ref[pl.ds(ci * 8, 8), :]        # [8,8]: cx cy cz r k . . .
-        cx = tb[:, 0:1]                             # [8,1]
-        cy = tb[:, 1:2]
-        cz = tb[:, 2:3]
-        r = tb[:, 3:4]
-        k = tb[:, 4:5]
-
-        dc = cx * dx + cy * dy + cz * dz            # [8,B]
-        oc = cx * ox + cy * oy + cz * oz
-        h = d_dot_o - dc
-        c2 = o_sq - 2.0 * oc + k
+        rows = pl.ds(ci * CHUNK, CHUNK)
+        cx = tab_ref[rows, 0][:, None]                  # [CHUNK, 1]
+        cy = tab_ref[rows, 1][:, None]
+        cz = tab_ref[rows, 2][:, None]
+        r = tab_ref[rows, 3][:, None]
+        k = tab_ref[rows, 4][:, None]
+        h = d_dot_o - (cx * dx + cy * dy + cz * dz)     # [CHUNK, BLOCK]
+        c2 = o_sq - 2.0 * (cx * ox + cy * oy + cz * oz) + k
         disc = h * h - a * c2
         ok = (disc >= 0.0) & (r > 0.0)
         sq = jnp.sqrt(jnp.maximum(disc, 0.0))
@@ -66,112 +69,87 @@ def _sweep_kernel(table_ref, o_ref, d_ref, t_ref, id_ref, *, n_chunks: int,
         t2 = (-h + sq) * inv_a
         t1_ok = ok & (t1 > t_min) & (t1 < t_max)
         t2_ok = ok & (t2 > t_min) & (t2 < t_max)
-        t = jnp.where(t1_ok, t1, jnp.where(t2_ok, t2, t_max))  # [8,B]
-
-        ids = ci * 8 + jax.lax.broadcasted_iota(jnp.int32, (8, B), 0)
+        t = jnp.where(t1_ok, t1, jnp.where(t2_ok, t2, t_max))
+        ids = ci * CHUNK + jax.lax.broadcasted_iota(
+            jnp.int32, (CHUNK, BLOCK), 0)
         better = t < best_t
-        best_t = jnp.where(better, t, best_t)
-        best_id = jnp.where(better, ids, best_id)
-        return best_t, best_id
+        return jnp.where(better, t, best_t), jnp.where(better, ids, best_id)
 
-    init = (
-        jnp.full((8, B), t_max, jnp.float32),
-        jnp.full((8, B), -1, jnp.int32),
-    )
+    init = (jnp.full((CHUNK, BLOCK), t_max, jnp.float32),
+            jnp.full((CHUNK, BLOCK), -1, jnp.int32))
     best_t, best_id = jax.lax.fori_loop(0, n_chunks, chunk, init)
 
-    # Fold the 8 sublane candidates to one winner per lane.
-    tmin_row = jnp.min(best_t, axis=0, keepdims=True)       # [1,B]
-    is_win = best_t <= tmin_row
-    id_masked = jnp.where(is_win, best_id, jnp.int32(2147483647))
-    win_id = jnp.min(id_masked, axis=0, keepdims=True)
-    win_id = jnp.where(tmin_row >= t_max, -1, win_id)
-
-    t_ref[:] = tmin_row
-    id_ref[:] = win_id
+    t_win = jnp.min(best_t, axis=0)                     # [BLOCK]
+    id_win = jnp.min(jnp.where(best_t <= t_win[None, :], best_id,
+                               jnp.int32(2147483647)), axis=0)
+    t_ref[...] = t_win
+    id_ref[...] = jnp.where(t_win >= t_max, -1, id_win)
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
-def sphere_sweep_pallas(table8, o3, d3, interpret=False):
-    """table8: [S, 8] (S multiple of 8); o3/d3: [3, R] (R multiple of BLOCK).
-    Returns (t [R], id [R])."""
-    S = table8.shape[0]
-    R = o3.shape[1]
-    n_blocks = R // BLOCK
-
+def sphere_sweep(table, ox, oy, oz, dx, dy, dz, interpret=False):
+    """table: [S, 8] (S = table_rows(S)); ray components [R] with R a
+    multiple of BLOCK.  Returns (t [R], id [R])."""
+    S = table.shape[0]
+    R = ox.shape[0]
     kernel = functools.partial(
-        _sweep_kernel, n_chunks=S // 8, t_min=float(T_MIN), t_max=float(T_MAX)
-    )
-    t, ids = pl.pallas_call(
+        _sphere_kernel, n_chunks=S // CHUNK, t_min=float(T_MIN),
+        t_max=float(T_MAX))
+    ray = pl.BlockSpec((BLOCK,), lambda i: (i,))
+    return pl.pallas_call(
         kernel,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((S, 8), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, BLOCK), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, BLOCK), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, BLOCK), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, BLOCK), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, R), jnp.float32),
-            jax.ShapeDtypeStruct((1, R), jnp.int32),
-        ],
+        grid=(R // BLOCK,),
+        in_specs=[pl.BlockSpec((S, 8), lambda i: (0, 0))] + [ray] * 6,
+        out_specs=[ray, ray],
+        out_shape=[jax.ShapeDtypeStruct((R,), jnp.float32),
+                   jax.ShapeDtypeStruct((R,), jnp.int32)],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
         interpret=interpret,
-    )(table8, o3, d3)
-    return t[0], ids[0]
+        name="sphere_sweep",
+    )(table, ox, oy, oz, dx, dy, dz)
 
 
 def pad_table8(table5):
-    """[S,5] world sphere table → [S_pad8, 8] for the kernel."""
-    import numpy as np
-
+    """[S,5] world sphere table (cx cy cz r k) -> [table_rows(S), 8]."""
     S = table5.shape[0]
-    S8 = max(8, -(-S // 8) * 8)
-    out = jnp.zeros((S8, 8), jnp.float32)
+    out = jnp.zeros((table_rows(S), 8), jnp.float32)
     out = out.at[:S, :5].set(table5)
-    if S8 > S:
-        out = out.at[S:, 4].set(3.0e37)  # padding k: never hits
-    return out
+    return out.at[S:, 4].set(3.0e37)  # padding k: never hits
 
 
-def intersect_spheres_pallas(o, d, table8, active=None, interpret=False):
-    """Drop-in closest-hit matching intersect_spheres_world's contract."""
+def pad_rays(o, d, block: int = BLOCK):
+    """V3 rays -> six [R_pad] components, R_pad a positive multiple of
+    `block`.  Padding rays (o = 0, d = (1,1,1)) are cut off by the
+    caller."""
+    R = o.x.shape[0]
+    pad = -R % block
+    if pad == 0 and R > 0:
+        return tuple(o) + tuple(d)
+    pad = pad or block
+    zo = lambda c: jnp.pad(c, (0, pad))
+    zd = lambda c: jnp.pad(c, (0, pad), constant_values=1.0)
+    return tuple(zo(c) for c in o) + tuple(zd(c) for c in d)
+
+
+def intersect_spheres_pallas_v3(o, d, table8, active=None, interpret=False):
+    """Closest hit of V3 rays against the padded sphere table, with
+    intersect_spheres_world's contract (SphereHit, -1 = miss)."""
     from .spheres import SphereHit
 
-    R = o.shape[0]
-    R_pad = max(BLOCK, -(-R // BLOCK) * BLOCK)
-    o3 = jnp.zeros((3, R_pad), jnp.float32).at[:, :R].set(o.T)
-    d3 = jnp.ones((3, R_pad), jnp.float32).at[:, :R].set(d.T)
-    t, ids = sphere_sweep_pallas(table8, o3, d3, interpret=interpret)
-    t = t[:R]
-    ids = ids[:R]
+    R = o.x.shape[0]
+    t, ids = sphere_sweep(table8, *pad_rays(o, d), interpret=interpret)
+    t, ids = t[:R], ids[:R]
     if active is not None:
         t = jnp.where(active, t, T_MAX)
         ids = jnp.where(active, ids, -1)
     return SphereHit(t=t, sph=ids)
 
 
-def intersect_spheres_pallas_v3(o, d, table8, active=None, interpret=False):
-    """V3 (component) entry: builds the [3, R] kernel inputs by stacking
-    1-D components — no [R,3] transpose relayout."""
-    import jax.numpy as _jnp
+def intersect_spheres_pallas(o, d, table8, active=None, interpret=False):
+    """[R,3] row-layout entry (tests and tools)."""
+    from .vec3 import from_rows
 
-    from .spheres import SphereHit
-    from .vec3 import to_3r
-
-    R = o.x.shape[0]
-    R_pad = max(BLOCK, -(-R // BLOCK) * BLOCK)
-    o3 = to_3r(o)
-    d3 = to_3r(d)
-    if R_pad != R:
-        o3 = _jnp.pad(o3, ((0, 0), (0, R_pad - R)))
-        d3 = _jnp.pad(d3, ((0, 0), (0, R_pad - R)), constant_values=1.0)
-    t, ids = sphere_sweep_pallas(table8, o3, d3, interpret=interpret)
-    t = t[:R]
-    ids = ids[:R]
-    if active is not None:
-        t = _jnp.where(active, t, T_MAX)
-        ids = _jnp.where(active, ids, -1)
-    return SphereHit(t=t, sph=ids)
+    return intersect_spheres_pallas_v3(from_rows(o), from_rows(d), table8,
+                                       active=active, interpret=interpret)

@@ -113,13 +113,13 @@ def turbulence(p, depth: int = 7):
     return jnp.abs(accum)
 
 
-# ---- component-wise variant (megakernel-compatible) ----
+# ---- component-wise variant (the wavefront's V3 layout) ----
 #
-# cnoise/turbulence above operate on [..., 3] stacks; inside the Pallas
-# megakernel every value is an (8,128) lane tile and stacking would
-# create 3-D arrays Mosaic can't lower.  These mirrors apply the SAME
-# expression tree per element with scalar components, so they are
-# bitwise-identical to the stacked versions (verified by test_perlin).
+# cnoise/turbulence above operate on [..., 3] stacks; the wavefront keeps
+# ray state as separate [R] components (ops/vec3.py).  These mirrors
+# apply the SAME expression tree per element with scalar components, so
+# they are bitwise-identical to the stacked versions (verified by
+# test_perlin).
 
 def cnoise_v3(px, py, pz):
     """Classic Perlin noise on separate component arrays."""

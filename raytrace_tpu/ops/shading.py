@@ -2,8 +2,7 @@
 (models/shading_table.py).
 
 Replaces the registry-walk of ops/materials.py + ops/textures.py on the hot
-path: the hit primitive's 32-float row arrives via one one-hot MXU matmul
-(small primitive tables) or one row gather (large meshes), and every
+path: the hit primitive's 32-float row arrives via one row gather, and every
 material family evaluates branchlessly from row slots.  Semantics are
 identical to the registry path (ray_gen.glsl:328-440) — covered by
 cross-checking tests.
@@ -27,22 +26,6 @@ from ..models.shading_table import MODE_CHECKER, MODE_CONST, MODE_IMAGE, MODE_NO
 from . import perlin, rng, vec
 from .materials import COSINE_PDF, NO_PDF, ScatterRecord, reflect, refract, schlick_reflectance
 from .textures import sample_image_nearest
-
-ONEHOT_MAX = 4096  # above this, fetch rows with a gather instead of MXU
-
-
-def fetch_rows(shade_rows, prim_id, n_rows: int):
-    """Fetch fat rows for [R] primitive ids.
-
-    Small tables: one-hot matmul on the MXU (beats XLA's ~0.4 G rows/s
-    gather ceiling by an order of magnitude at these sizes); large tables:
-    plain row gather.
-    """
-    if n_rows <= ONEHOT_MAX:
-        onehot = jax.nn.one_hot(prim_id, n_rows, dtype=jnp.float32)
-        return jnp.dot(onehot, shade_rows, preferred_element_type=jnp.float32)
-    return shade_rows[jnp.clip(prim_id, 0, n_rows - 1)]
-
 
 def _marble(scale, p):
     """Noise-texture marble (ray_gen.glsl:203-208); aux slot carries the

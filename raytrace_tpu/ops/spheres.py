@@ -1,12 +1,12 @@
-"""Closed-form sphere intersection — the TPU-native flagship geometry path.
+"""Closed-form sphere intersection — the flagship geometry path.
 
 The reference tessellates every uv_sphere into up to thousands of triangles
 because the Vulkan RT pipeline only traces triangles (mesh.rs:155-258,
-acceleration.rs).  On TPU the roles invert: pointer-chasing a BVH costs
-~0.4G random row reads/s, while dense regular arithmetic runs at TFLOP/s —
-so spheres are intersected analytically as a dense [rays x spheres] sweep
-with a running closest-hit reduction, exactly like the original "Ray
-Tracing in One Weekend" formulation the reference approximates.
+acceleration.rs).  Without RT cores the roles invert: a few hundred
+analytic spheres are cheaper as a dense [rays x spheres] sweep with a
+running closest-hit reduction than as a BVH over their tessellations —
+exactly the original "Ray Tracing in One Weekend" formulation the
+reference approximates.
 
 Instance transforms are handled by taking each ray into object space with
 the instance's world-to-object matrix (supports translation, rotation —
@@ -66,8 +66,9 @@ def intersect_spheres(o, d, centers, radii, w2o, active=None, chunk=128,
         # [R,C,3] = [R,1,3] @ [1,C,3,3]^T contraction.
         rot = m[:, :, :3]                                       # [C,3,3]
         trn = m[:, :, 3]                                        # [C,3]
-        o_obj = jnp.einsum("cij,rj->rci", rot, o) + trn[None]
-        d_obj = jnp.einsum("cij,rj->rci", rot, d)
+        hp = jax.lax.Precision.HIGHEST   # no TF32 on the GPU
+        o_obj = jnp.einsum("cij,rj->rci", rot, o, precision=hp) + trn[None]
+        d_obj = jnp.einsum("cij,rj->rci", rot, d, precision=hp)
 
         oc = o_obj - c[None]                                    # [R,C,3]
         a = jnp.sum(d_obj * d_obj, axis=-1)
@@ -134,80 +135,13 @@ def world_sphere_tables(cs, batch_times) -> "np.ndarray":
     return out.astype(np.float32)
 
 
-def world_sphere_anim_tables(cs):
-    """Host (f64) endpoint + delta tables for the FUSED animated
-    megakernel (megakernel MegaConfig.anim_lerp): instead of one table
-    per batch time, the kernel lerps world centers in-flight —
-    c(t) = c0 + t*dc — so one pair of tables serves every batch of a
-    fused chunk.  The TPU replacement for the reference's per-batch TLAS
-    refit + fence (acceleration.rs:91-115) on animated scenes.
-
-    Returns (tab0 [S,5] f32 endpoint-0 table in world_sphere_tables
-    layout, dtab8 [S8,8] f32 with cols 0:3 = dc = c1-c0, col 4 =
-    k1 = 2*c0.dc, col 5 = k2 = |dc|^2, so k(t) = k0 + t*(k1 + t*k2)
-    keeps the f64-precomputed |c0|^2 - r^2 cancellation), or None when
-    the fused form is invalid: non-uniform scale (no world mode), a
-    radius-animated sphere (dr != 0 — the kernel lerps centers only),
-    or a center path that is not linear in t (rotation-about-offset
-    animation: c(t) = T(t) + R(t) S(t) c_obj bends when R animates and
-    c_obj != 0; verified against the true transform at t = 0.25/0.5/0.75).
-    """
-    from ..models.bvh_build import _instance_matrix_at
-
-    S = cs.sph_center.shape[0]
-    n = cs.num_spheres
-    if n == 0:
-        return None
-
-    def _world(t):
-        mats = _instance_matrix_at(cs.inst_t0, cs.inst_t1, float(t))
-        m = mats[cs.sph_inst[:n]]
-        rot = m[:, :, :3]
-        scale = np.linalg.norm(rot, axis=1)
-        if not np.allclose(scale, scale[:, :1], rtol=1e-5, atol=1e-7):
-            return None, None
-        c = np.einsum("sij,sj->si", rot, cs.sph_center[:n]) + m[:, :, 3]
-        r = scale[:, 0] * cs.sph_radius[:n]
-        return c, r
-
-    c0, r0 = _world(0.0)
-    c1, r1 = _world(1.0)
-    if c0 is None or c1 is None:
-        return None
-    rs = np.maximum(np.abs(r0), np.abs(r1))
-    if not np.all(np.abs(r1 - r0) <= 1e-6 * rs + 1e-9):
-        return None                       # radius-animated sphere
-    dc = c1 - c0
-    span = np.linalg.norm(dc, axis=-1) + rs
-    for t in (0.25, 0.5, 0.75):
-        ct, _ = _world(t)
-        if ct is None:
-            return None
-        dev = np.linalg.norm(ct - (c0 + t * dc), axis=-1)
-        if not np.all(dev <= 1e-6 * span + 1e-9):
-            return None                   # nonlinear center path
-
-    tab0 = np.zeros((S, 5), np.float64)
-    tab0[:n, 0:3] = c0
-    tab0[:n, 3] = r0
-    tab0[:n, 4] = (c0 ** 2).sum(-1) - r0 ** 2
-    tab0[n:, 4] = 3.0e37                  # padding: never hits
-    S8 = max(8, -(-S // 8) * 8)
-    dtab8 = np.zeros((S8, 8), np.float64)
-    dtab8[:n, 0:3] = dc
-    dtab8[:n, 4] = 2.0 * (c0 * dc).sum(-1)
-    dtab8[:n, 5] = (dc ** 2).sum(-1)
-    return tab0.astype(np.float32), dtab8.astype(np.float32)
-
-
 def intersect_spheres_world(o, d, table, active=None, chunk=128,
                             t_min=T_MIN, t_max=T_MAX) -> SphereHit:
     """Closest hit against world-space spheres via the stable h-form.
 
     table: [S, 5] = (cx, cy, cz, r, k) with k = |c|^2 - r^2 precomputed in
-    f64.  The rays x spheres sweep is two MXU matmuls plus [C, R]
-    elementwise work — the sphere axis rides the SUBLANE dimension so tiny
-    sphere counts (padded to 8) still fill all 128 lanes with rays.
+    f64.  The rays x spheres sweep is two full-precision [C,3] x [3,R]
+    products plus [C, R] elementwise work per chunk of C spheres.
     """
     R = o.shape[0]
     S = table.shape[0]
@@ -277,12 +211,14 @@ def sphere_hit_attributes(o, d, t, sph_id, centers, radii, w2o_all, inst_all):
     c = centers[sid]
     r = radii[sid]
 
+    hp = jax.lax.Precision.HIGHEST   # no TF32 on the GPU
     p_world = o + t[:, None] * d
-    p_obj = jnp.einsum("rij,rj->ri", m[:, :, :3], p_world) + m[:, :, 3]
+    p_obj = jnp.einsum("rij,rj->ri", m[:, :, :3], p_world,
+                       precision=hp) + m[:, :, 3]
     n_obj = (p_obj - c) / jnp.where(r == 0.0, 1.0, r)[:, None]
 
     # Normal transform: n_world = n_obj · W2O_rot (inverse-transpose).
-    n_world = jnp.einsum("rj,rji->ri", n_obj, m[:, :, :3])
+    n_world = jnp.einsum("rj,rji->ri", n_obj, m[:, :, :3], precision=hp)
     from . import vec
     n_world = vec.normalize(n_world)
 
@@ -293,42 +229,3 @@ def sphere_hit_attributes(o, d, t, sph_id, centers, radii, w2o_all, inst_all):
     theta = jnp.arctan2(nn[:, 2], -nn[:, 0])          # in (-pi, pi]
     u = (theta / TWO_PI) % 1.0
     return p_world, n_world, u, v
-
-
-def cluster_bounds_from_table8(table8, group: int = 64):
-    """Conservative bounding spheres over consecutive `group`-sphere
-    clusters of a kernel sweep table ([S8,8]: cx cy cz r k, padding rows
-    k=3e37).
-
-    The megakernel skips a whole cluster when no active lane can hit its
-    bound (ops/megakernel._sweep).  Bounds are inflated by a magnitude-
-    scaled margin so f32 rounding in the bound test can never skip a true
-    hit the per-sphere f32 test would find.  Returns [C,8]: cx cy cz rb kb
-    (kb = |c|^2 - rb^2; empty clusters get kb=3e37, never hit).
-    """
-    import jax.numpy as jnp
-
-    S8 = table8.shape[0]
-    if S8 % group != 0:
-        import jax.numpy as _j
-        pad = group - S8 % group
-        fill = _j.zeros((pad, 8), table8.dtype).at[:, 4].set(3e37)
-        table8 = _j.concatenate([table8, fill], axis=0)
-        S8 = table8.shape[0]
-    C = max(1, S8 // group)
-    g = table8.reshape(C, group, 8)
-    c = g[..., 0:3]
-    r = jnp.abs(g[..., 3])
-    valid = g[..., 4] < 1e37
-    big = jnp.float32(3e37)
-    lo = jnp.min(jnp.where(valid[..., None], c - r[..., None], big), axis=1)
-    hi = jnp.max(jnp.where(valid[..., None], c + r[..., None], -big), axis=1)
-    anyv = valid.any(axis=1)
-    ctr = jnp.where(anyv[..., None], 0.5 * (lo + hi), 0.0)
-    d = jnp.sqrt(((c - ctr[:, None, :]) ** 2).sum(-1)) + r
-    rb = jnp.max(jnp.where(valid, d, 0.0), axis=1)
-    rb = rb + 1e-3 + 1e-3 * (jnp.abs(ctr).max(-1) + rb)
-    kb = (ctr ** 2).sum(-1) - rb * rb
-    kb = jnp.where(anyv, kb, big)
-    out = jnp.zeros((C, 8), jnp.float32)
-    return out.at[:, 0:3].set(ctr).at[:, 3].set(rb).at[:, 4].set(kb)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 
@@ -19,6 +20,11 @@ class InstanceMatrices(NamedTuple):
     object_to_world: jnp.ndarray  # [I, 3, 4]
     world_to_object: jnp.ndarray  # [I, 3, 4]
 
+
+# Full f32 precision for the geometry contractions: the GPU may otherwise
+# run an f32 einsum in TF32 (~1e-3 relative), which cracks meshes and
+# moves hits past T_MIN.
+_HP = jax.lax.Precision.HIGHEST
 
 def quat_slerp(a, b, t):
     """Batched quaternion slerp with shortest-path flip + nlerp fallback.
@@ -68,7 +74,7 @@ def interpolate_instances(inst_t0, inst_t1, time) -> InstanceMatrices:
     inv_s = 1.0 / sc
     rt = jnp.swapaxes(rot, -1, -2)
     m_inv = rt * inv_s[:, :, None]              # diag(1/s) @ R^T: scale rows
-    t_inv = -jnp.einsum("ijk,ik->ij", m_inv, tr)
+    t_inv = -jnp.einsum("ijk,ik->ij", m_inv, tr, precision=_HP)
     w2o = jnp.concatenate([m_inv, t_inv[:, :, None]], axis=-1)
     return InstanceMatrices(object_to_world=o2w, world_to_object=w2o)
 
@@ -83,6 +89,7 @@ def transform_soup(tri_p, tri_n, tri_inst, mats: InstanceMatrices):
     """
     o2w = mats.object_to_world[tri_inst]  # [T,3,4]
     w2o = mats.world_to_object[tri_inst]
-    world_p = jnp.einsum("tij,tvj->tvi", o2w[:, :, :3], tri_p) + o2w[:, None, :, 3]
-    world_n = jnp.einsum("tvj,tji->tvi", tri_n, w2o[:, :, :3])
+    world_p = (jnp.einsum("tij,tvj->tvi", o2w[:, :, :3], tri_p, precision=_HP)
+               + o2w[:, None, :, 3])
+    world_n = jnp.einsum("tvj,tji->tvi", tri_n, w2o[:, :, :3], precision=_HP)
     return world_p, world_n

@@ -6,18 +6,21 @@ Layout:
 - scene/camera/geometry inputs are replicated (broadcast once).
 - each device renders its (row-shard, sample-shard) wavefront fully
   independently — ray bouncing is embarrassingly parallel with shared
-  read-only scene state — then one `psum` over "sp" (ICI) folds partial
+  read-only scene state — then one `psum` over "sp" folds partial
   sample sums; the output image shards over "px" with no communication.
 
+The mesh follows the algorithm, not a link topology: the devices of one
+host are joined all to all, so any px x sp split is as good as another.
+
 Optional third axis ("sc") SHARDS THE SCENE ITSELF for scenes too large
-to replicate per chip: primitive tables (and the fat shading rows) are
+to replicate per device: primitive tables (and the fat shading rows) are
 row-sharded over "sc", rays replicate across it, and every bounce runs
 one closest-hit pmin combine plus one-owner masked psums for the
-winner's rows (engine/wavefront._sc_combine_hit / _sc_fetch) — all over
-ICI.  make_mesh(sp=, sc=) builds either layout.
+winner's rows (engine/wavefront._sc_combine_hit / _sc_fetch).
+make_mesh(sp=, sc=) builds either layout.
 
-This is the TPU-native replacement for what would be multi-queue /
-multi-GPU work distribution in the reference's architecture (it had none).
+This is the multi-device work distribution the reference's architecture
+lacked (it renders on one GPU queue).
 """
 
 from __future__ import annotations
@@ -30,8 +33,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..engine.arrays import SceneArrays, SceneStatic, upload_scene
-from ..engine.wavefront import BatchGeometry, prepare_batch, render_tile
+from ..engine.arrays import SceneArrays, SceneStatic
+from ..engine.wavefront import prepare_batch, render_tile
 from ..ops import camera as cam_ops
 
 
@@ -43,7 +46,7 @@ def make_mesh(devices=None, sp: Optional[int] = None,
     uses 2 when the device count is even, else 1.  `sc` > 1 adds the
     scene-sharding axis: primitive tables are row-sharded over it and the
     bounce loop combines per-shard hits with pmin/psum collectives — for
-    scenes too large to replicate per chip.
+    scenes too large to replicate per device.
     """
     devices = devices if devices is not None else jax.devices()
     n = len(devices)
@@ -75,10 +78,9 @@ def sharded_batch_fn(static: SceneStatic, mesh: Mesh, use_dof: bool,
     over rows, rays_traced scalar).
 
     `rows_inner` bounds rows per kernel dispatch WITHIN a shard (the same
-    ~1M-ray tile budget as the single-chip Renderer): a shard's row block
-    renders as ceil(rows_local/rows_inner) sequential dispatches, so one
-    dispatch stays well under the device watchdog even at full
-    resolution x 64 spp.
+    tile ray budget as the single-device Renderer): a shard's row block
+    renders as ceil(rows_local/rows_inner) sequential tiles, which bounds
+    the wavefront's working set even at full resolution x 64 spp.
     """
     n_px = mesh.shape["px"]
     n_sp = mesh.shape["sp"]
@@ -140,7 +142,7 @@ def _shard_tile_loop(static, scene, geom, cam, sample_batch, use_dof,
 
 # ---------------------------------------------------------------- scene
 # sharding ("sc" axis): primitive tables row-sharded across devices, for
-# scenes too large to replicate per chip.  The bounce loop's collectives
+# scenes too large to replicate per device.  The bounce loop's collectives
 # live in engine/wavefront (_sc_combine_hit / _sc_fetch).
 
 #: per-primitive SceneArrays leaves sharded along "sc" (plus shade_rows,
@@ -199,7 +201,7 @@ def scene_sharded_batch_fn(static: SceneStatic, mesh: Mesh, use_dof: bool,
                            rows_inner: Optional[int] = None):
     """Sharded batch step with SCENE sharding: per-prim scene leaves and
     the per-batch sphere table arrive stacked [n_sc, ...] with P("sc");
-    prepare_batch runs on the local slice inside shard_map, so each chip
+    prepare_batch runs on the local slice inside shard_map, so each device
     holds and refits 1/n_sc of the geometry.  Rays replicate over "sc";
     the per-bounce closest-hit pmin + one-owner row psums reproduce the
     replicated render exactly (see wavefront._sc_combine_hit)."""
@@ -207,7 +209,6 @@ def scene_sharded_batch_fn(static: SceneStatic, mesh: Mesh, use_dof: bool,
     assert static.scene_axis == "sc" and static.scene_shards == n_sc
     assert static.use_fat_shading, "scene sharding needs the fat-row ABI"
     assert static.bvh_mode == "none", "scene sharding shards the soup, not a BVH"
-    assert not static.use_megakernel
     n_px = mesh.shape["px"]
     n_sp = mesh.shape["sp"]
     spp = static.sqrt_spp ** 2
@@ -240,107 +241,21 @@ def scene_sharded_batch_fn(static: SceneStatic, mesh: Mesh, use_dof: bool,
     return jax.jit(mapped)
 
 
-def sharded_chunk_fn(static: SceneStatic, mesh: Mesh, use_dof: bool,
-                     k: int, q: int):
-    """k-batch fused megakernel chunk, sharded like sharded_batch_fn.
-
-    The single-chip fast path's two big wins (engine.renderer
-    _cached_mega_chunk) ported to the mesh: (1) STATIC scenes fuse k
-    progressive batches into ONE kernel call whose lanes stream
-    k*spp_local samples each (the divergence tail amortizes over the
-    chunk); animated scenes lax.scan k per-batch kernel calls; (2) each
-    row shard keeps its own measured per-pixel cost history and
-    re-deals its pixels to lanes with the snake-stratified assignment
-    every chunk.
-
-    f(scene, cam, accum, pix_perm, hist, batch0, times, sph_tabs) ->
-      (accum', rays_per_batch [k], next_perm, hist')
-    accum/hist/pix_perm are row-sharded over "px"; scene/cam replicated.
-    """
-    from ..engine.renderer import _snake_perm
-    from ..ops.megakernel import render_tile_mega
-
-    n_px = mesh.shape["px"]
-    n_sp = mesh.shape["sp"]
-    spp = static.sqrt_spp ** 2
-    if spp % n_sp != 0:
-        raise ValueError(f"effective spp {spp} must be divisible by sp={n_sp}")
-    spp_local = spp // n_sp
-    rows_local = _padded_rows(static.height, n_px)
-    n_pix_local = rows_local * static.width
-    n_lanes = -(-n_pix_local // (1024 * q)) * 1024
-
-    def shard_body(scene, cam, accum, pix_perm, hist, batch0, times,
-                   sph_tabs):
-        px_rank = jax.lax.axis_index("px")
-        sp_rank = jax.lax.axis_index("sp")
-        row_base = (px_rank * rows_local).astype(jnp.int32)
-        sample_base = (sp_rank * spp_local).astype(jnp.uint32)
-
-        if not static.any_animated:
-            geom = prepare_batch(
-                static, scene, times[0],
-                sph_table=sph_tabs[0] if static.sphere_world_mode else None,
-            )
-            sum_tiles, tr, traced_pix, _it = render_tile_mega(
-                static, scene, geom, cam, batch0, row_base, rows_local,
-                use_dof, spp_local=spp_local, sample_base=sample_base,
-                reduce_mean=False, interpret=static.pallas_interpret,
-                pix_perm=pix_perm, n_batches=k, q_pix=q,
-            )
-            trs = jnp.full((k,), tr / k, jnp.float32)
-        else:
-            def step(carry, inp):
-                t, tab, _bi = inp
-                geom = prepare_batch(
-                    static, scene, t,
-                    sph_table=tab if static.sphere_world_mode else None,
-                )
-                tile, tr, traced, _it = render_tile_mega(
-                    static, scene, geom, cam, _bi, row_base, rows_local,
-                    use_dof, spp_local=spp_local, sample_base=sample_base,
-                    reduce_mean=False, interpret=static.pallas_interpret,
-                    pix_perm=pix_perm, q_pix=q,
-                )
-                return carry + tile, (tr, traced)
-
-            bids = batch0 + jnp.arange(k, dtype=jnp.int32)
-            zero = jnp.zeros((rows_local, static.width, 3), jnp.float32)
-            sum_tiles, (trs, traced_k) = jax.lax.scan(
-                step, zero, (times, sph_tabs, bids))
-            traced_pix = jnp.sum(traced_k, axis=0)
-
-        sum_tiles = jax.lax.psum(sum_tiles, "sp")
-        trs = jax.lax.psum(trs, ("px", "sp"))
-        # Cost history: every sample of a pixel is traced on this row
-        # shard (samples split over "sp"), so fold the sp-halves.
-        traced_pix = jax.lax.psum(traced_pix, "sp")
-        hist = hist + traced_pix
-        next_perm = _snake_perm(hist, q, n_lanes)
-
-        b0 = batch0.astype(jnp.float32)
-        accum = (b0 * accum + sum_tiles / spp) / (b0 + k)
-        return (accum, trs, next_perm, hist)
-
-    mapped = jax.shard_map(
-        shard_body,
-        mesh=mesh,
-        in_specs=(P(), P(), P("px"), P("px"), P("px"), P(), P(), P()),
-        out_specs=(P("px"), P(), P("px"), P("px")),
-        check_vma=False,
-    )
-    return jax.jit(mapped)
+@functools.partial(jax.jit, donate_argnums=(0,))
+def _fold(accum, img, b):
+    """Running mean: fold batch b's image into the mean of b batches."""
+    return (b * accum + img) / (b + 1.0)
 
 
 class MultiChipRenderer:
     """Progressive renderer sharded over a device mesh.
 
-    Matches the single-chip Renderer's semantics and feature set — same
-    RNG streams, same running-mean accumulation (a sharded render is
-    bit-identical to the single-chip one up to float reduction order),
-    same BVH construction, per-batch metrics, checkpoint/resume and PNG
-    export, plus the single-chip ~1M-ray dispatch budget applied WITHIN
-    each row shard.
+    Matches the single-device Renderer's semantics and feature set — same
+    scene setup (engine.renderer.setup_scene), RNG streams and running-
+    mean accumulation (a sharded render is bit-identical to the single-
+    device one up to float reduction order), per-batch metrics,
+    checkpoint/resume and PNG export, plus the single-device tile ray
+    budget applied WITHIN each row shard.
     """
 
     def __init__(self, compiled, mesh: Optional[Mesh] = None,
@@ -348,85 +263,40 @@ class MultiChipRenderer:
                  use_bvh="auto", leaf_size: int = 4,
                  metrics_jsonl: Optional[str] = None,
                  use_pallas_sweep: Optional[bool] = None,
-                 kernel_options=None):
+                 pallas_interpret: bool = False):
+        import dataclasses
         import time as _time
 
-        from ..engine.renderer import RenderStats, get_batch_ray_times
-        from ..options import KernelOptions
+        from ..engine.renderer import (RAY_BUDGET, TRI_SWEEP_MAX,
+                                       RenderStats, setup_scene)
         from ..utils.cache import enable_compilation_cache
         from ..utils.profiling import BatchMetrics
 
         enable_compilation_cache()
-        self.kernel_options = (
-            (kernel_options or KernelOptions()).with_env_overrides())
         self._time = _time
-        self.compiled = compiled
         self.mesh = mesh if mesh is not None else make_mesh()
         self.n_sc = dict(self.mesh.shape).get("sc", 1)
 
-        # Same BVH policy as the single-chip Renderer (renderer.py):
-        # native SAH over the triangle soup for big meshes.  Scene
-        # sharding shards the SOUP, not a BVH — brute-force/Pallas
-        # sweeps only.
-        bvh = None
+        # Scene sharding shards the SOUP, not a BVH: dense sweeps only.
         if use_bvh == "auto":
-            use_bvh = compiled.num_triangles > 8192 and self.n_sc == 1
+            use_bvh = (compiled.num_triangles > TRI_SWEEP_MAX
+                       and self.n_sc == 1)
         if use_bvh and self.n_sc > 1:
             raise ValueError("scene sharding (sc > 1) does not support a BVH")
-        if use_bvh and compiled.num_triangles > 0:
-            from ..models.bvh_build import (build_bvh, build_bvh_sah,
-                                            permute_soup)
-
-            bvh = build_bvh_sah(compiled, leaf_max=8)
-            if bvh is None:
-                bvh = build_bvh(compiled, leaf_size=leaf_size)
-            compiled = permute_soup(compiled, bvh)
-            self.compiled = compiled
-        self.bvh = bvh
-        self.scene, self.static = upload_scene(compiled, bvh=bvh)
-        self.batch_times = get_batch_ray_times(compiled.render.sample_batches)
-
-        import dataclasses
-
-        # Mirrors the single-chip Renderer: Pallas kernels default-on on
-        # TPU; an explicit use_pallas_sweep=True on CPU runs them in
-        # interpret mode (how tests exercise the sharded megakernel on
-        # the virtual mesh).
-        on_tpu = jax.default_backend() not in ("cpu",)
-        use_pallas = use_pallas_sweep if use_pallas_sweep is not None else on_tpu
-        self.static = dataclasses.replace(
-            self.static, use_pallas_sweep=use_pallas,
-            pallas_interpret=not on_tpu,
-            kernel_options=self.kernel_options,
-        )
-
-        self.sphere_tables = None
-        if self.static.has_spheres:
-            from ..ops.spheres import world_sphere_tables
-
-            self.sphere_tables = world_sphere_tables(compiled, self.batch_times)
-            if self.sphere_tables is not None:
-                self.static = dataclasses.replace(
-                    self.static, sphere_world_mode=True
-                )
-            else:
-                self.static = dataclasses.replace(
-                    self.static, use_pallas_sweep=False
-                )
-        if self.static.use_pallas_sweep and self.n_sc == 1:
-            from ..ops.megakernel import megakernel_supported
-
-            if megakernel_supported(self.static):
-                self.static = dataclasses.replace(
-                    self.static, use_megakernel=True
-                )
+        setup = setup_scene(compiled, use_bvh=use_bvh, leaf_size=leaf_size,
+                            use_pallas_sweep=use_pallas_sweep,
+                            pallas_interpret=pallas_interpret)
+        compiled = self.compiled = setup.compiled
+        self.bvh = setup.bvh
+        self.scene, self.static = setup.scene, setup.static
+        self.batch_times = setup.batch_times
+        self.sphere_tables = setup.sphere_tables
         if self.n_sc > 1:
             if not self.static.use_fat_shading:
                 raise ValueError(
                     "scene sharding needs the fat-row ABI (shade_rows)")
             self.static = dataclasses.replace(
                 self.static, scene_axis="sc", scene_shards=self.n_sc)
-        self._use_dof_flag = None
 
         name = camera_name or compiled.render.camera
         if name not in compiled.cameras:
@@ -435,18 +305,16 @@ class MultiChipRenderer:
             compiled.cameras[name], self.static.width, self.static.height
         )
         use_dof = compiled.cameras[name].aperture_size > 0.0
-        self._use_dof_flag = use_dof
         if self.n_sc == 1:
             # sc mode prepares INSIDE shard_map (prepare_batch calls
             # axis_index(scene_axis), illegal outside it).
             self._prepare = jax.jit(
                 functools.partial(prepare_batch, self.static))
 
-        # Single-chip dispatch budget (~1M rays) applied per shard.
+        # Single-device tile ray budget applied per shard.
         n_sp = self.mesh.shape["sp"]
         spp_local = max(1, self.static.sqrt_spp ** 2 // max(1, n_sp))
-        ray_budget = (1 << 15) if self.bvh is not None else (1 << 20)
-        rows_inner = max(1, ray_budget // (self.static.width * spp_local))
+        rows_inner = max(1, RAY_BUDGET // (self.static.width * spp_local))
         if self.n_sc > 1:
             self._scene_stacked = shard_scene_arrays(
                 self.scene, self.n_sc, mesh=self.mesh)
@@ -459,7 +327,7 @@ class MultiChipRenderer:
             self._sph_tabs_sc = jax.device_put(
                 tabs, NamedSharding(self.mesh, P(None, "sc")))
             # free the replicated per-prim device copies (the whole point
-            # of sc mode is not holding the full scene per chip); the
+            # of sc mode is not holding the full scene per device); the
             # stacked scene keeps the replicated non-prim leaves.
             tiny = {f: getattr(self.scene, f)[:1] for f in _SC_SHARDED}
             self.scene = self.scene._replace(**tiny)
@@ -469,36 +337,13 @@ class MultiChipRenderer:
             self._step = sharded_batch_fn(self.static, self.mesh, use_dof,
                                           rows_inner=rows_inner)
 
-        # Fused k-batch chunk path (megakernel only): per-shard snake
-        # cost assignment + chunked dispatch, the single-chip fast path
-        # ported to the mesh.
-        self._chunk_fns = {}
-        self._mega_q = self.kernel_options.resolved_q()
-        self._cost_perm = None
-        self._traced_hist = None
-        if self.static.use_megakernel:
-            from ..engine.renderer import banded_pixel_perm
-
-            n_px = self.mesh.shape["px"]
-            rows_local = _padded_rows(self.static.height, n_px)
-            local = banded_pixel_perm(
-                rows_local, self.static.width, self._mega_q)
-            perm0 = np.tile(local, n_px)
-            sh = NamedSharding(self.mesh, P("px"))
-            self._pix_perm = jax.device_put(perm0.astype(np.int32), sh)
-            hist0 = np.zeros(
-                (n_px * rows_local * self.static.width,), np.float32)
-            self._traced_hist = jax.device_put(hist0, sh)
-            self._times_dev = jnp.asarray(self.batch_times, jnp.float32)
-            if self.sphere_tables is not None:
-                self._sph_tables_dev = jnp.asarray(
-                    self.sphere_tables, jnp.float32)
-            else:
-                B = len(self.batch_times)
-                self._sph_tables_dev = jnp.zeros((B, 1, 5), jnp.float32)
-
         H, W = self.static.height, self.static.width
-        self.accum = jnp.zeros((H, W, 3), jnp.float32)
+        # The running mean lives row-padded and sharded exactly like the
+        # step's output image, so the jitted fold compiles once and never
+        # moves the image between devices.
+        self._accum_sharding = NamedSharding(self.mesh, P("px", None, None))
+        self._h_pad = self.mesh.shape["px"] * _padded_rows(H, self.mesh.shape["px"])
+        self.accum = np.zeros((H, W, 3), np.float32)
         self.current_batch = 0
         self.rays_traced = 0.0
         self.stats = RenderStats()
@@ -507,11 +352,22 @@ class MultiChipRenderer:
             jsonl_path=metrics_jsonl,
         )
 
+    @property
+    def accum(self):
+        """Running-mean image [H, W, 3] (a device array)."""
+        return self._accum_pad[:self.static.height]
+
+    @accum.setter
+    def accum(self, img) -> None:
+        img = np.asarray(img, np.float32)
+        pad = self._h_pad - img.shape[0]
+        img = np.pad(img, ((0, pad), (0, 0), (0, 0)))
+        self._accum_pad = jax.device_put(img, self._accum_sharding)
+
     def render_next_batch(self) -> bool:
         if self.current_batch >= self.compiled.render.sample_batches:
             return False
         t0 = self._time.perf_counter()
-        H = self.static.height
         if self.n_sc > 1:
             img_pad, rays = self._step(
                 self._scene_stacked,
@@ -532,9 +388,8 @@ class MultiChipRenderer:
             img_pad, rays = self._step(
                 self.scene, geom, self.camera, jnp.int32(self.current_batch)
             )
-        img = img_pad[:H]
-        b = jnp.float32(self.current_batch)
-        self.accum = (b * self.accum + img) / (b + 1.0)
+        self._accum_pad = _fold(self._accum_pad, img_pad,
+                                jnp.float32(self.current_batch))
         rays = float(rays)  # blocks until the batch finishes
         dt = self._time.perf_counter() - t0
         self.metrics.record(self.current_batch, dt, rays)
@@ -545,64 +400,16 @@ class MultiChipRenderer:
         self.stats.render_seconds += dt
         return True
 
-    CHUNK = 12
-
-    def chunk_size(self) -> int:
-        spp = max(1, self.static.sqrt_spp ** 2)
-        return max(1, min(self.CHUNK, 256 // spp))
-
     def render_batches(self, k: int) -> int:
-        """Render up to k batches in ONE fused sharded device call
-        (megakernel path; falls back to per-batch stepping otherwise)."""
-        total = self.compiled.render.sample_batches
-        k = min(k, total - self.current_batch)
-        if k <= 0:
-            return 0
-        if not self.static.use_megakernel or k == 1:
-            done = 0
-            while done < k and self.render_next_batch():
-                done += 1
-            return done
-        t0 = self._time.perf_counter()
-        cur = self.current_batch
-        if k not in self._chunk_fns:
-            self._chunk_fns[k] = sharded_chunk_fn(
-                self.static, self.mesh, self._use_dof_flag, k, self._mega_q)
-        H = self.static.height
-        n_px = self.mesh.shape["px"]
-        rows_local = _padded_rows(H, n_px)
-        pad = n_px * rows_local - H
-        accum_pad = (jnp.concatenate(
-            [self.accum, jnp.zeros((pad, self.static.width, 3), jnp.float32)],
-            axis=0) if pad else self.accum)
-        perm = self._cost_perm if self._cost_perm is not None else self._pix_perm
-        accum_pad, trs, next_perm, hist = self._chunk_fns[k](
-            self.scene, self.camera, accum_pad, perm, self._traced_hist,
-            jnp.int32(cur), self._times_dev[cur:cur + k],
-            self._sph_tables_dev[cur:cur + k],
-        )
-        self.accum = accum_pad[:H]
-        self._cost_perm = next_perm
-        self._traced_hist = hist
-        trs = np.asarray(trs)  # blocks until the chunk finishes
-        dt = self._time.perf_counter() - t0
-        for i in range(k):
-            self.metrics.record(cur + i, dt / k, float(trs[i]))
-        self.current_batch += k
-        self.rays_traced += float(trs.sum())
-        self.stats.batches_done += k
-        self.stats.rays_traced += float(trs.sum())
-        self.stats.render_seconds += dt
-        return k
+        """Render up to k batches; returns the number rendered."""
+        done = 0
+        while done < k and self.render_next_batch():
+            done += 1
+        return done
 
     def render_all(self) -> np.ndarray:
-        total = self.compiled.render.sample_batches
-        while self.current_batch < total:
-            if self.static.use_megakernel:
-                self.render_batches(
-                    min(self.chunk_size(), total - self.current_batch))
-            elif not self.render_next_batch():
-                break
+        while self.render_next_batch():
+            pass
         return np.asarray(self.accum)
 
     def image(self) -> np.ndarray:
@@ -614,7 +421,7 @@ class MultiChipRenderer:
         write_png(path, self.image())
 
     # ------------------------------------------------- checkpoint/resume
-    # Same npz format as the single-chip Renderer: checkpoints written by
+    # Same npz format as the single-device Renderer: checkpoints written by
     # either renderer resume on the other.
 
     def save_checkpoint(self, path: str) -> None:
@@ -632,5 +439,5 @@ class MultiChipRenderer:
             self.static.width, self.static.height,
         ):
             raise ValueError("Checkpoint resolution does not match scene")
-        self.accum = jnp.asarray(data["accum"])
+        self.accum = data["accum"]
         self.current_batch = int(data["current_batch"])

@@ -185,3 +185,72 @@ def generate_final_one_weekend_pair():
     static = generate_final_one_weekend_scene(False, rng=rng)
     blur = generate_final_one_weekend_scene(True, rng=rng)
     return static, blur
+
+
+def generate_quad_box_scene(samples_per_pixel: int = 4,
+                            sample_batches: int = 2,
+                            max_ray_depth: int = 10) -> SceneFile:
+    """A Cornell-style box built from quads, with an emissive ceiling quad
+    and two boxes (one metal), in the reference's y-down world: the scene
+    family of its cornell-box*.json, generated in code.  36 triangles,
+    2 of them emissive, so it drives the triangle sweep and the
+    alias-table NEE/MIS path."""
+    from ..scene_file import Box, DiffuseLight, Quad, Rotate, SolidSky
+
+    def quad(name, pts, normal, material):
+        return Quad(name=name, points=pts, normal=normal,
+                    uv=[[0, 0], [1, 0], [1, 1], [0, 1]], material=material)
+
+    s = 555.0
+    ident = lambda name: Instance(name=name)
+    textures = [ConstantTexture(name="red", rgb=[0.65, 0.05, 0.05]),
+                ConstantTexture(name="white", rgb=[0.73, 0.73, 0.73]),
+                ConstantTexture(name="green", rgb=[0.12, 0.45, 0.15]),
+                ConstantTexture(name="light", rgb=[15.0, 15.0, 15.0]),
+                ConstantTexture(name="steel", rgb=[0.8, 0.85, 0.88]),
+                ConstantTexture(name="no_fuzz", rgb=[0.0, 0.0, 0.0])]
+    materials = [Lambertian(name="red", albedo="red"),
+                 Lambertian(name="white", albedo="white"),
+                 Lambertian(name="green", albedo="green"),
+                 DiffuseLight(name="light", emit="light"),
+                 Metal(name="steel", albedo="steel", fuzz="no_fuzz")]
+    primitives = [
+        quad("left", [[s, 0, 0], [s, 0, s], [s, s, s], [s, s, 0]],
+             [-1, 0, 0], "green"),
+        quad("right", [[0, 0, s], [0, 0, 0], [0, s, 0], [0, s, s]],
+             [1, 0, 0], "red"),
+        quad("floor", [[0, s, 0], [s, s, 0], [s, s, s], [0, s, s]],
+             [0, -1, 0], "white"),
+        quad("ceiling", [[0, 0, s], [s, 0, s], [s, 0, 0], [0, 0, 0]],
+             [0, 1, 0], "white"),
+        quad("back", [[0, 0, s], [0, s, s], [s, s, s], [s, 0, s]],
+             [0, 0, -1], "white"),
+        quad("lamp", [[213, 1, 227], [343, 1, 227], [343, 1, 332],
+                      [213, 1, 332]], [0, 1, 0], "light"),
+        Box(name="tall", corners=[[0, 0, 0], [165, -330, 165]],
+            material="steel"),
+        Box(name="short", corners=[[0, 0, 0], [165, -165, 165]],
+            material="white"),
+    ]
+
+    def placed(name, deg, t):
+        return Instance(name=name, transform=TransformType(
+            start=Transform(translate=t,
+                            rotate=Rotate(axis=[0, 1, 0], degrees=deg))))
+
+    instances = [ident(p.name) for p in primitives[:6]]
+    instances += [placed("tall", 15.0, [265.0, s, 295.0]),
+                  placed("short", -18.0, [130.0, s, 65.0])]
+    cameras = [PerspectiveCamera(
+        name="default", eye=[278.0, 278.0, -800.0],
+        look_at=[278.0, 278.0, 0.0], up=[0.0, 1.0, 0.0], fov_y=40.0,
+        z_near=0.01, z_far=10000.0, focal_length=10.0, aperture_size=0.0,
+    )]
+    return SceneFile(
+        cameras=cameras, textures=textures, materials=materials,
+        primitives=primitives, instances=instances,
+        sky=SolidSky(rgb=[0.0, 0.0, 0.0]),
+        render=Render(camera="default", samples_per_pixel=samples_per_pixel,
+                      sample_batches=sample_batches,
+                      max_ray_depth=max_ray_depth, aspect_ratio=1.0),
+    )

@@ -1,10 +1,14 @@
 """Persistent XLA compilation cache.
 
-The megakernel programs take minutes to compile on TPU (the whole bounce
-loop is one Pallas kernel); a process restart should never pay that twice.
-JAX's persistent cache stores serialized executables keyed on the traced
+A process restart should not pay for the same compile twice.  JAX's
+persistent cache stores serialized executables keyed on the traced
 computation + compile options + backend, so a second process with the same
 scene shape skips straight to execution.
+
+Placement: when ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself
+and this module sets no directory; otherwise the cache lives at a fixed
+``.jax_cache/`` in the checkout (listed in .gitignore), so its path — part
+of the cache key's reach — never moves between runs.
 
 The reference has no analogue (Rust ahead-of-time compiles its shaders at
 build time via vulkano_shaders, shaders/src/lib.rs:8-46) — this is the
@@ -15,26 +19,29 @@ from __future__ import annotations
 
 import os
 
-_enabled = False
+from .paths import REPO_ROOT
+
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+DEFAULT_DIR = os.path.join(REPO_ROOT, ".jax_cache")
 
 
-def enable_compilation_cache(path: str | None = None) -> str:
-    """Idempotently point JAX's persistent compilation cache at `path`
-    (default: $RAYTRACE_TPU_CACHE or ~/.cache/raytrace_tpu/xla)."""
-    global _enabled
+def cache_dir() -> str:
+    """Where the compile cache lives: $JAX_COMPILATION_CACHE_DIR if set,
+    else .jax_cache/ in the checkout."""
+    return os.environ.get(ENV_VAR) or DEFAULT_DIR
+
+
+def enable_compilation_cache() -> str:
+    """Idempotently turn on JAX's persistent compilation cache and return
+    its directory."""
     import jax
 
-    cache_dir = (path
-                 or os.environ.get("RAYTRACE_TPU_CACHE")
-                 or os.path.join(os.path.expanduser("~"),
-                                 ".cache", "raytrace_tpu", "xla"))
-    if _enabled:
-        return cache_dir
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    # Kernel compiles are the expensive ones, but cache everything that
-    # took real compile effort; entry size is irrelevant on local disk.
+    path = cache_dir()
+    if not os.environ.get(ENV_VAR) and jax.config.jax_compilation_cache_dir != path:
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
+    # Cache everything that took real compile effort; entry size is
+    # irrelevant on local disk.
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    _enabled = True
-    return cache_dir
+    return path

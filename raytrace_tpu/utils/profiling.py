@@ -2,7 +2,8 @@
 (SURVEY.md §5: the reference has only log lines; no timers, no counters).
 
 - `trace(dir)`: context manager around jax.profiler for device timelines
-  (view with TensorBoard / xprof).
+  (view with TensorBoard / xprof; tools_dev/trace_flagship.py reduces one
+  to busy/idle share and top ops).
 - `BatchMetrics`: per-batch counters (rays, seconds, Mrays/s, spp/s) with a
   JSONL sink, cheap enough to leave on.
 """
@@ -12,7 +13,6 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
-import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -20,26 +20,17 @@ log = logging.getLogger(__name__)
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/raytrace_tpu_trace"):
-    """Capture a jax.profiler trace for the enclosed block (no-op if the
-    platform doesn't support profiling)."""
+def trace(log_dir: str):
+    """Capture a jax.profiler trace of the enclosed block into `log_dir`.
+    A trace that was asked for and cannot start raises."""
     import jax
 
-    started = False
-    try:
-        jax.profiler.start_trace(log_dir)
-        started = True
-    except Exception as e:  # some backends (tunneled) can't profile
-        log.warning("profiler unavailable: %s", e)
+    jax.profiler.start_trace(log_dir)
     try:
         yield
     finally:
-        if started:
-            try:
-                jax.profiler.stop_trace()
-                log.info("profile written to %s", log_dir)
-            except Exception as e:
-                log.warning("profiler stop failed: %s", e)
+        jax.profiler.stop_trace()
+        log.info("profile written to %s", log_dir)
 
 
 @dataclass

@@ -4,7 +4,7 @@ The reference's bin/src/app.rs runs a winit window: per-frame
 acquire->render->present progressively refines the image (app.rs:286-305),
 'o' opens a file dialog to hot-swap scenes keeping the old one on errors
 (app.rs:263-283, 225-234), and resizing restarts accumulation
-(app.rs:239-242).  The TPU-native equivalent is a tiny HTTP viewer: a
+(app.rs:239-242).  The equivalent here is a tiny HTTP viewer: a
 render thread refines batch by batch while a browser polls the current
 accumulation; scene hot-swap (explicit or by watching the file's mtime)
 and resize-restart follow the same semantics.
@@ -18,7 +18,6 @@ the old scene), `/resize?width=&height=` (restart accumulation).
 
 from __future__ import annotations
 
-import io
 import json
 import logging
 import os
@@ -132,25 +131,16 @@ class ViewerState:
             if r.current_batch >= r.compiled.render.sample_batches:
                 time.sleep(0.25)
                 continue
-            if getattr(r, "_mega_step", None) is not None:
-                r.render_batches(min(r.chunk_size(),
-                                     r.compiled.render.sample_batches
-                                     - r.current_batch))
-            else:
-                r.render_next_batch()
+            r.render_next_batch()
 
     # -- views ------------------------------------------------------------
 
     def png_bytes(self) -> bytes:
-        from .utils.image import to_srgb_u8
+        from .utils.image import encode_png, to_srgb_u8
 
         with self.lock:
             img = np.asarray(self.renderer.accum)
-        from PIL import Image
-
-        buf = io.BytesIO()
-        Image.fromarray(to_srgb_u8(img)).save(buf, format="PNG")
-        return buf.getvalue()
+        return encode_png(to_srgb_u8(img))
 
     def status(self) -> dict:
         with self.lock:

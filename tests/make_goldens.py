@@ -1,6 +1,6 @@
 """Regenerate golden renders (run from repo root):
 
-    python tests/make_goldens.py
+    python tests/make_goldens.py [scene.json ...]   # default: every scene
 
 Goldens are small deterministic CPU renders of every reference scene; the
 regression test (test_goldens.py) re-renders and compares RMSE.  Regenerate
@@ -18,47 +18,20 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from raytrace_tpu.models import compile_scene          # noqa: E402
-from raytrace_tpu.scene_file import SceneFile          # noqa: E402
 from raytrace_tpu.engine import Renderer               # noqa: E402
 from raytrace_tpu.utils.image import write_png         # noqa: E402
+from golden_configs import CONFIGS, golden_scene       # noqa: E402
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
 
-# scene -> (width, spp, batches, depth)
-CONFIGS = {
-    "triangle.json": (64, 4, 1, 8),
-    "quads.json": (64, 4, 1, 6),
-    "diffuse-spheres.json": (64, 4, 1, 8),
-    "metal-spheres.json": (64, 4, 1, 8),
-    "dielectric-spheres.json": (64, 4, 1, 10),
-    "checkered-spheres.json": (64, 4, 1, 6),
-    "perlin-spheres.json": (64, 4, 1, 6),
-    "earth.json": (64, 4, 1, 4),
-    "earth-motion-blur.json": (64, 4, 2, 4),
-    "cornell-box.json": (64, 9, 2, 10),
-    "cornell-box-metal.json": (64, 9, 2, 10),
-    "cornell-box-glass.json": (64, 9, 2, 10),
-    "simple-light.json": (64, 9, 2, 8),
-    "final-one-weekend.json": (96, 4, 1, 8),
-    "final-one-weekend-motion-blur.json": (96, 4, 2, 8),
-}
-
 
 def render_golden(name):
-    w, spp, batches, depth = CONFIGS[name]
-    sf = SceneFile.load_json(os.path.join("/root/reference/assets", name))
-    sf.render.samples_per_pixel = spp
-    sf.render.sample_batches = batches
-    sf.render.max_ray_depth = depth
-    h = max(1, round(w / sf.render.aspect_ratio))
-    cs = compile_scene(sf, width=w, height=h)
-    return Renderer(cs).render_all()
+    return Renderer(golden_scene(name)).render_all()
 
 
-def main():
+def main(names=None):
     os.makedirs(GOLDEN_DIR, exist_ok=True)
-    for name in CONFIGS:
+    for name in names or CONFIGS:
         img = render_golden(name)
         stem = name.replace(".json", "")
         np.savez_compressed(os.path.join(GOLDEN_DIR, stem + ".npz"), image=img)
@@ -67,4 +40,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

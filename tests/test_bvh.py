@@ -164,7 +164,7 @@ class TestSAH:
             textures=[ConstantTexture(name="w", rgb=[0.7, 0.7, 0.7])],
             materials=[Lambertian(name="m", albedo="w")],
             primitives=[ObjMesh(name="mesh",
-                                path="/root/reference/assets/obj/sphere-smooth.obj",
+                                path=reference_asset("obj/sphere-smooth.obj"),
                                 material="m")],
             instances=[Instance(name="mesh")],
             sky=SolidSky(rgb=[1.0, 1.0, 1.0]),

@@ -26,9 +26,9 @@ def test_bench_json_shape(tmp_path):
     out = _run(
         "import bench; bench.main()",
         env_extra={
-            "BENCH_SCENE": "triangle.json",
+            "BENCH_SCENE": "final-one-weekend.json",
             "BENCH_WIDTH": "32",
-            "BENCH_HEIGHT": "32",
+            "BENCH_HEIGHT": "18",
             "BENCH_BATCHES": "2",
         },
     )
@@ -38,8 +38,9 @@ def test_bench_json_shape(tmp_path):
     assert data["metric"] == "mrays_per_sec"
     assert data["unit"] == "Mrays/s"
     assert data["value"] > 0
-    # vs_baseline is rounded to 4 decimals in the output.
-    assert abs(data["vs_baseline"] - data["value"] / 500.0) < 1e-4
+    # The line names the device it ran on (here the CPU, never a card).
+    assert data["device"]["platform"] == "cpu"
+    assert data["device"]["count"] >= 1
 
 
 def test_cli_render_exit_codes(tmp_path):
@@ -47,7 +48,7 @@ def test_cli_render_exit_codes(tmp_path):
     assert out.returncode == 2
     out = _run(
         "from raytrace_tpu.cli import main; sys.exit(main(['render',"
-        "'--path','/root/reference/assets/triangle.json','--width','24',"
+        "'--path','assets/final-one-weekend.json','--width','24',"
         f"'-o','{tmp_path}/t.png']))"
     )
     assert out.returncode == 0

@@ -15,7 +15,7 @@ from raytrace_tpu.models.compile import (
     SKY_VERTICAL_GRADIENT,
 )
 from raytrace_tpu.scene_file import SceneFile
-from conftest import REFERENCE_ASSETS
+from conftest import REFERENCE_ASSETS, reference_asset
 
 ASSET_FILES = sorted(glob.glob(os.path.join(REFERENCE_ASSETS, "*.json")))
 
@@ -27,7 +27,7 @@ def compiled():
     def get(name):
         if name not in cache:
             cache[name] = compile_scene(
-                SceneFile.load_json(os.path.join(REFERENCE_ASSETS, name))
+                SceneFile.load_json(reference_asset(name))
             )
         return cache[name]
 
@@ -87,7 +87,7 @@ def test_cornell_box(compiled):
 
 
 def test_final_one_weekend_scale():
-    sf = SceneFile.load_json(os.path.join(REFERENCE_ASSETS, "final-one-weekend.json"))
+    sf = SceneFile.load_json(reference_asset("final-one-weekend.json"))
     cs = compile_scene(sf)
     assert cs.num_instances == 488
     # Analytic mode: every uv_sphere is a closed-form sphere, no soup.

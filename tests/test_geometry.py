@@ -134,7 +134,9 @@ class TestObj:
 
     def test_load_reference_obj(self):
         # The reference ships OBJ assets its loader never used; ours does.
-        p, n, uv, idx = load_obj("/root/reference/assets/obj/sphere-smooth.obj")
+        from conftest import reference_asset
+
+        p, n, uv, idx = load_obj(reference_asset("obj/sphere-smooth.obj"))
         assert p.shape[0] > 100
         assert idx.shape[0] % 3 == 0
         np.testing.assert_allclose(

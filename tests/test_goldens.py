@@ -7,6 +7,7 @@ import os
 import numpy as np
 import pytest
 
+from conftest import reference_asset
 from make_goldens import CONFIGS, GOLDEN_DIR, render_golden
 from raytrace_tpu.utils.image import rmse
 
@@ -14,9 +15,10 @@ HAVE_GOLDENS = os.path.isdir(GOLDEN_DIR) and len(os.listdir(GOLDEN_DIR)) > 0
 
 
 # Fast-set goldens: one scene per major feature family (triangles +
-# checker, emissives/NEE, image texture).  The other 12 run under
-# `pytest -m ""` / `-m slow` (full regression sweep).
-FAST_GOLDENS = {"triangle.json", "cornell-box.json", "earth.json"}
+# checker, emissives/NEE, image texture, the 488-sphere flagship).  The
+# others run under `pytest -m ""` / `-m slow` (full regression sweep).
+FAST_GOLDENS = {"triangle.json", "cornell-box.json", "earth.json",
+                "final-one-weekend.json"}
 
 
 @pytest.mark.skipif(not HAVE_GOLDENS, reason="goldens not generated")
@@ -30,6 +32,7 @@ def test_golden(name):
     if not os.path.exists(path):
         pytest.skip(f"golden missing for {stem}")
     golden = np.load(path)["image"]
+    reference_asset(name)  # skips scenes not shipped in assets/ yet
     img = render_golden(name)
     assert img.shape == golden.shape
     err = rmse(img, golden)

@@ -1,6 +1,6 @@
-"""Multi-chip sharding tests on the 8-device virtual CPU mesh: the sharded
-render must match the single-chip render exactly (same RNG streams, float
-reduction order aside)."""
+"""Multi-device sharding tests on the 8-device virtual CPU mesh: the
+sharded render must match the single-device render exactly (same RNG
+streams, float reduction order aside)."""
 
 import numpy as np
 import jax
@@ -15,7 +15,7 @@ from conftest import reference_asset
 
 @pytest.fixture(scope="module")
 def small_scene():
-    sf = SceneFile.load_json(reference_asset("diffuse-spheres.json"))
+    sf = SceneFile.load_json(reference_asset("final-one-weekend.json"))
     sf.render.samples_per_pixel = 4
     sf.render.sample_batches = 2
     sf.render.max_ray_depth = 6
@@ -99,10 +99,10 @@ def test_metrics_and_stats_recorded(small_scene, tmp_path):
 def test_bvh_passthrough():
     """--multichip with mesh geometry must honor use_bvh (round 1 silently
     brute-forced); sharded BVH render matches single-chip BVH render."""
-    sf = SceneFile.load_json(reference_asset("quads.json"))
-    sf.render.samples_per_pixel = 4
-    sf.render.sample_batches = 1
-    sf.render.max_ray_depth = 4
+    from raytrace_tpu.tools import generate_quad_box_scene
+
+    sf = generate_quad_box_scene(samples_per_pixel=4, sample_batches=1,
+                                 max_ray_depth=4)
     cs = compile_scene(sf, width=32, height=32)
 
     single = Renderer(cs, use_bvh=True).render_all()
@@ -116,7 +116,7 @@ def test_weak_scaling_shapes():
     """Fixed per-device work from 1 to 8 devices: the sharded step must
     compile and agree with the single-chip result at every mesh size (a
     virtual-CPU functional stand-in for the weak-scaling curve)."""
-    sf = SceneFile.load_json(reference_asset("diffuse-spheres.json"))
+    sf = SceneFile.load_json(reference_asset("final-one-weekend.json"))
     sf.render.samples_per_pixel = 4
     sf.render.sample_batches = 1
     sf.render.max_ray_depth = 4
@@ -132,64 +132,16 @@ def test_weak_scaling_shapes():
 
 
 # ---------------------------------------------------------------------------
-# Sharded MEGAKERNEL path: the combination that runs on real TPU meshes
-# (multichip enables use_megakernel on TPU).  On the virtual CPU mesh the
-# kernel runs in interpret mode via use_pallas_sweep=True — round-2 verdict
-# weak #3: this exact path previously had zero coverage.
+# Sharded path with the Pallas-Triton sweeps (interpret mode on the virtual
+# CPU mesh): the kernels run inside shard_map exactly as on the cards.
 
-@pytest.fixture(scope="module")
-def mega_scene():
-    sf = SceneFile.load_json(reference_asset("diffuse-spheres.json"))
-    sf.render.samples_per_pixel = 4
-    sf.render.sample_batches = 2
-    sf.render.max_ray_depth = 4
-    return compile_scene(sf, width=32, height=18)
-
-
-def test_sharded_megakernel_matches_single_chip(mega_scene):
-    single = Renderer(mega_scene, use_pallas_sweep=True)
-    assert single.static.use_megakernel
+def test_sharded_triton_sweep_matches_single_chip(small_scene):
+    single = Renderer(small_scene, use_pallas_sweep=True,
+                      pallas_interpret=True)
+    assert single.static.use_pallas_sweep
     ref = single.render_all()
 
-    multi = MultiChipRenderer(mega_scene, mesh=make_mesh(sp=2),
-                              use_pallas_sweep=True)
-    assert multi.static.use_megakernel
-    img = multi.render_all()            # routes through the fused chunk
-    np.testing.assert_allclose(img, ref, atol=2e-5)
-
-
-def test_sharded_megakernel_box_pair_matches_single_chip():
-    """Round-3 kernel strategies (AABB pretest + pairwise split) under
-    shard_map: the gather sweep needs the Morton cluster layout, so this
-    runs final-one-weekend small."""
-    from raytrace_tpu.options import KernelOptions
-
-    sf = SceneFile.load_json(reference_asset("final-one-weekend.json"))
-    sf.render.samples_per_pixel = 4
-    sf.render.sample_batches = 1
-    sf.render.max_ray_depth = 4
-    cs = compile_scene(sf, width=32, height=18)
-    opts = KernelOptions(sweep="gather", box=True, balance="pair",
-                         rounds_unroll=2)
-    single = Renderer(cs, use_pallas_sweep=True, kernel_options=opts)
-    assert single.static.use_megakernel
-    ref = single.render_all()
-
-    multi = MultiChipRenderer(cs, mesh=make_mesh(sp=2),
-                              use_pallas_sweep=True, kernel_options=opts)
-    assert multi.static.use_megakernel
+    multi = MultiChipRenderer(small_scene, mesh=make_mesh(sp=2),
+                              use_pallas_sweep=True, pallas_interpret=True)
+    assert multi.static.use_pallas_sweep
     np.testing.assert_allclose(multi.render_all(), ref, atol=2e-5)
-
-
-@pytest.mark.slow
-def test_sharded_megakernel_chunk_equals_stepping(mega_scene):
-    mesh = make_mesh(sp=2)
-    r1 = MultiChipRenderer(mega_scene, mesh=mesh, use_pallas_sweep=True)
-    done = r1.render_batches(2)
-    assert done == 2
-
-    r2 = MultiChipRenderer(mega_scene, mesh=mesh, use_pallas_sweep=True)
-    while r2.render_next_batch():
-        pass
-    np.testing.assert_allclose(np.asarray(r1.accum), np.asarray(r2.accum),
-                               atol=2e-6)

@@ -242,9 +242,10 @@ def test_checkpoint_resume(tmp_path):
 
 
 def test_triangle_asset_smoke():
+    from conftest import reference_asset
     from raytrace_tpu.scene_file import SceneFile as SF
 
-    sf = SF.load_json("/root/reference/assets/triangle.json")
+    sf = SF.load_json(reference_asset("triangle.json"))
     sf.render.samples_per_pixel = 4
     cs = compile_scene(sf, width=32, height=32)
     r = Renderer(cs)

@@ -15,7 +15,7 @@ from raytrace_tpu.scene_file import (
     SceneError,
     SceneFile,
 )
-from conftest import REFERENCE_ASSETS
+from conftest import REFERENCE_ASSETS, reference_asset
 
 ASSET_FILES = sorted(glob.glob(os.path.join(REFERENCE_ASSETS, "*.json")))
 
@@ -69,7 +69,7 @@ def test_load_and_roundtrip(path):
 
 
 def test_final_one_weekend_counts():
-    scene = SceneFile.load_json(os.path.join(REFERENCE_ASSETS, "final-one-weekend.json"))
+    scene = SceneFile.load_json(reference_asset("final-one-weekend.json"))
     assert len(scene.primitives) == 488
     assert len(scene.instances) == 488
     assert scene.render.samples_per_pixel == 4
@@ -79,14 +79,14 @@ def test_final_one_weekend_counts():
 
 def test_motion_blur_transforms_parse():
     scene = SceneFile.load_json(
-        os.path.join(REFERENCE_ASSETS, "final-one-weekend-motion-blur.json")
+        reference_asset("final-one-weekend-motion-blur.json")
     )
     animated = [i for i in scene.instances if i.transform and i.transform.is_animated]
     assert len(animated) == 390
 
 
 def test_render_limit_clamp(tmp_path):
-    scene = SceneFile.load_json(os.path.join(REFERENCE_ASSETS, "triangle.json"))
+    scene = SceneFile.load_json(reference_asset("triangle.json"))
     scene.render.samples_per_pixel = 999
     scene.render.sample_batches = 999
     p = tmp_path / "clamped.json"
@@ -97,7 +97,7 @@ def test_render_limit_clamp(tmp_path):
 
 
 def test_checker_recursion_rejected():
-    scene = SceneFile.load_json(os.path.join(REFERENCE_ASSETS, "triangle.json"))
+    scene = SceneFile.load_json(reference_asset("triangle.json"))
     scene.textures.append(
         CheckerTexture(name="c2", scale=1.0, even="green-and-white-checker", odd="white")
     )
@@ -106,26 +106,26 @@ def test_checker_recursion_rejected():
 
 
 def test_checker_unknown_reference_rejected():
-    scene = SceneFile.load_json(os.path.join(REFERENCE_ASSETS, "triangle.json"))
+    scene = SceneFile.load_json(reference_asset("triangle.json"))
     scene.textures.append(CheckerTexture(name="c2", scale=1.0, even="nope", odd="white"))
     with pytest.raises(SceneError, match="unknown texture"):
         scene.validate()
 
 
 def test_relative_image_path_resolved():
-    scene = SceneFile.load_json(os.path.join(REFERENCE_ASSETS, "earth.json"))
+    scene = SceneFile.load_json(reference_asset("earth.json"))
     img = [t for t in scene.textures if isinstance(t, ImageTexture)]
     assert img and os.path.isabs(img[0].path) and os.path.exists(img[0].path)
 
 
 def test_missing_camera_raises():
-    scene = SceneFile.load_json(os.path.join(REFERENCE_ASSETS, "triangle.json"))
+    scene = SceneFile.load_json(reference_asset("triangle.json"))
     with pytest.raises(SceneError, match="not found"):
         scene.get_camera("nonexistent")
 
 
 def test_duplicate_texture_names_keep_first(caplog):
-    scene = SceneFile.load_json(os.path.join(REFERENCE_ASSETS, "triangle.json"))
+    scene = SceneFile.load_json(reference_asset("triangle.json"))
     scene.textures.append(ConstantTexture(name="green", rgb=[1, 0, 0]))
     tex = scene.get_textures()
     assert tex["green"].rgb == [0.2, 0.3, 0.1]

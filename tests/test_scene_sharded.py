@@ -17,7 +17,12 @@ from raytrace_tpu.scene_file import SceneFile
 
 
 def _tiny(name, width=32, spp=4, batches=2, depth=4):
-    sf = SceneFile.load_json(reference_asset(name))
+    if name == "quad-box":
+        from raytrace_tpu.tools import generate_quad_box_scene
+
+        sf = generate_quad_box_scene()
+    else:
+        sf = SceneFile.load_json(reference_asset(name))
     sf.render.samples_per_pixel = spp
     sf.render.sample_batches = batches
     sf.render.max_ray_depth = depth
@@ -33,7 +38,6 @@ def _render_pair(name, **kw):
     rep = MultiChipRenderer(cs, mesh=make_mesh(devices[:4], sp=2))
     shd = MultiChipRenderer(cs, mesh=make_mesh(devices, sp=2, sc=2))
     assert shd.static.scene_axis == "sc" and shd.static.scene_shards == 2
-    assert not shd.static.use_megakernel
     rep_img = rep.render_all()
     shd_img = shd.render_all()
     assert rep.rays_traced == shd.rays_traced
@@ -47,9 +51,9 @@ def test_scene_sharded_spheres_bitwise():
 
 
 def test_scene_sharded_triangles_nee_bitwise():
-    """Cornell box: triangle soup sharded 2-ways with NEE lights
+    """Quad box: triangle soup sharded 2-ways with NEE lights
     (brute-force tri sweep, non-packed attribute path)."""
-    rep, shd = _render_pair("cornell-box.json", width=24, spp=4,
+    rep, shd = _render_pair("quad-box", width=24, spp=4,
                             batches=1, depth=4)
     np.testing.assert_array_equal(rep, shd)
 
@@ -97,7 +101,7 @@ def test_cli_scene_sharded_render(tmp_path):
     writes the same PNG as the replicated multichip render."""
     from raytrace_tpu.cli import main
 
-    scene = reference_asset("diffuse-spheres.json")
+    scene = reference_asset("final-one-weekend.json")
     out_a = tmp_path / "rep.png"
     out_b = tmp_path / "sc.png"
     assert main(["render", "--path", scene, "--width", "24",
@@ -105,14 +109,15 @@ def test_cli_scene_sharded_render(tmp_path):
     assert main(["render", "--path", scene, "--width", "24",
                  "--multichip", "--scene-shards", "2",
                  "-o", str(out_b)]) == 0
-    import PIL.Image as Image
-    a = np.asarray(Image.open(out_a))
-    b = np.asarray(Image.open(out_b))
+    from raytrace_tpu.utils.image import decode_png
+
+    a = decode_png(out_a.read_bytes())
+    b = decode_png(out_b.read_bytes())
     np.testing.assert_array_equal(a, b)
 
 
 def test_scene_sharded_rejects_bvh():
-    cs = _tiny("cornell-box.json", width=16, spp=1, batches=1, depth=2)
+    cs = _tiny("quad-box", width=16, spp=1, batches=1, depth=2)
     devices = jax.devices()[:8]
     with pytest.raises(ValueError, match="BVH"):
         MultiChipRenderer(cs, mesh=make_mesh(devices, sp=2, sc=2),

@@ -54,13 +54,11 @@ def test_rows_content_final_scene():
     assert ground[17] == pytest.approx(0.32)
     np.testing.assert_allclose(ground[18:21], [0.2, 0.3, 0.1], atol=1e-6)
     np.testing.assert_allclose(ground[21:24], [0.9, 0.9, 0.9], atol=1e-6)
-    # Hero metal sphere: albedo .7/.6/.5, fuzz 0.  The sphere block is
-    # spatially reordered (models/sphere_order.py): the big spheres keep
-    # their original relative order at the front, so the metal hero
-    # (generated last, tools order ground/grid/heroes) is the last
-    # prefix row.
-    assert cs.sph_prefix >= 4
-    hero3 = rows[cs.sph_prefix - 1]
+    # Hero metal sphere: albedo .7/.6/.5, fuzz 0.  Spheres keep file
+    # order (tools order ground/grid/heroes), so the metal hero is the
+    # last sphere row.
+    assert cs.num_spheres == 488
+    hero3 = rows[cs.num_spheres - 1]
     assert hero3[0] == MAT_TYPE_METAL
     np.testing.assert_allclose(hero3[2:5], [0.7, 0.6, 0.5], atol=1e-6)
     np.testing.assert_allclose(hero3[5:8], 0.0, atol=1e-6)

@@ -52,8 +52,12 @@ def test_batch_metrics_jsonl(tmp_path):
 
 
 def test_profiler_trace_noop_on_cpu(tmp_path):
-    """trace() must never raise even when the backend can't profile."""
+    """trace() profiles the CPU backend too and leaves a trace file."""
+    import jax.numpy as jnp
+
     from raytrace_tpu.utils import profiling
 
     with profiling.trace(str(tmp_path / "trace")):
-        pass
+        jnp.ones(8).sum().block_until_ready()
+    found = [f for _, _, fs in os.walk(tmp_path / "trace") for f in fs]
+    assert any(f.endswith(".xplane.pb") for f in found), found

@@ -3,12 +3,10 @@ tests: progressive refinement over HTTP, scene hot-swap keeping the old
 scene on errors (app.rs:225-234), and resize-restarts-accumulation
 semantics (app.rs:239-242)."""
 
-import io
 import json
 import time
 import urllib.request
 
-import numpy as np
 import pytest
 
 from conftest import reference_asset
@@ -38,7 +36,7 @@ def _wait(port, pred, timeout=60.0):
 
 @pytest.fixture
 def viewer():
-    v = Viewer(reference_asset("diffuse-spheres.json"), width=48, port=0)
+    v = Viewer(reference_asset("final-one-weekend.json"), width=48, port=0)
     v.start()
     yield v
     v.stop()
@@ -50,9 +48,9 @@ def test_progressive_refinement_and_png(viewer):
     assert st["width"] == 48
     png = _get(p, "/image.png")
     assert png[:8] == b"\x89PNG\r\n\x1a\n"
-    from PIL import Image
+    from raytrace_tpu.utils.image import decode_png
 
-    img = np.asarray(Image.open(io.BytesIO(png)))
+    img = decode_png(png)
     assert img.shape[1] == 48 and img.mean() > 0
     page = _get(p, "/")
     assert b"raytrace_tpu" in page
@@ -65,16 +63,17 @@ def test_bad_hotswap_keeps_old_scene(viewer):
     _get(p, "/reload?path=/nonexistent/scene.json")
     st = _wait(p, lambda s: s["error"] is not None, timeout=30)
     assert st["generation"] == gen0          # old scene kept rendering
-    assert "diffuse-spheres" in st["scene"]
+    assert st["scene"].endswith("final-one-weekend.json")
 
 
 def test_hotswap_and_resize_restart(viewer):
     p = viewer.port
     _wait(p, lambda s: s["batch"] >= 1)
     gen0 = _status(p)["generation"]
-    _get(p, f"/reload?path={reference_asset('triangle.json')}")
+    blur = reference_asset("final-one-weekend-motion-blur.json")
+    _get(p, f"/reload?path={blur}")
     st = _wait(p, lambda s: s["generation"] > gen0, timeout=120)
-    assert "triangle" in st["scene"]
+    assert "motion-blur" in st["scene"]
 
     gen1 = st["generation"]
     _get(p, "/resize?width=32")

@@ -2,7 +2,7 @@
 grid spheres tiled kxk with world-space offsets (22 units apart, the
 grid's footprint) — 4x/9x/16x scenes for the sub-linear-scaling bench.
 
-    python tools_dev/gen_stress.py 2      # -> /tmp/stress-4x.json
+    python tools_dev/gen_stress.py 2      # -> stress-4x.json
 """
 
 import copy
@@ -15,7 +15,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     k = int(sys.argv[1]) if len(sys.argv) > 1 else 2
-    doc = json.load(open("/root/reference/assets/final-one-weekend.json"))
+    from raytrace_tpu.utils.paths import FLAGSHIP_SCENE
+
+    with open(FLAGSHIP_SCENE) as f:
+        doc = json.load(f)
     prims = doc["primitives"]
     insts = {i["name"]: i for i in doc["instances"]}
     grid = [p for p in prims
@@ -34,8 +37,9 @@ def main():
                 new_insts.append({"name": b["name"]})
     doc["primitives"].extend(new_prims)
     doc["instances"].extend(new_insts)
-    out = f"/tmp/stress-{k*k}x.json"
-    json.dump(doc, open(out, "w"))
+    out = f"stress-{k*k}x.json"
+    with open(out, "w") as f:
+        json.dump(doc, f)
     n = sum(1 for p in doc["primitives"] if "uv_sphere" in p)
     print(f"{out}: {n} spheres")
 

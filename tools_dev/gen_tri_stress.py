@@ -1,17 +1,13 @@
-"""Stress scenes for the raised megakernel gates (round 4).
+"""Stress scenes for large primitive counts.
 
-Two builders, shared by bench_stress.py and tests/test_stress_scale.py:
-
-- tri_stress_scene(k): a k x k grid of sphere-smooth.obj instances
+- tri_stress_doc(k): a k x k grid of sphere-smooth.obj instances
   (960 tris each) over a ground sphere — the "big OBJ soup" the
-  reference traces through its driver BLAS (acceleration.rs:268-294);
-  here it rides the tri-cluster gather sweep (tri_cluster_g > 0, up to
-  the 16384-triangle gate).
+  reference traces through its driver BLAS (acceleration.rs:268-294).
+  The OBJ is expected at assets/obj/sphere-smooth.obj.
 - sphere_stress_doc(k, cap): final-one-weekend tiled k x k (the
-  gen_stress.py tiling), optionally trimmed to exactly `cap` spheres so
-  a 16384-sphere scene sits right at the gather sweep's capacity.
+  gen_stress.py tiling), optionally trimmed to exactly `cap` spheres.
 
-Run as a script to write /tmp/tri-stress-{n}.json.
+Run as a script to write tri-stress-{n}.json in the current directory.
 """
 
 import copy
@@ -21,7 +17,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-OBJ = "/root/reference/assets/obj/sphere-smooth.obj"
+from raytrace_tpu.utils.paths import FLAGSHIP_SCENE, asset  # noqa: E402
+
+OBJ = asset("obj/sphere-smooth.obj")
 
 
 def tri_stress_doc(k: int = 4):
@@ -65,7 +63,8 @@ def tri_stress_doc(k: int = 4):
 def sphere_stress_doc(k: int, cap: int = 0):
     """final-one-weekend grid tiled k x k (gen_stress.py layout); with
     `cap`, added spheres are trimmed so the total is exactly cap."""
-    doc = json.load(open("/root/reference/assets/final-one-weekend.json"))
+    with open(FLAGSHIP_SCENE) as f:
+        doc = json.load(f)
     prims = doc["primitives"]
     grid = [p for p in prims
             if "uv_sphere" in p
@@ -95,8 +94,9 @@ def main():
     k = int(sys.argv[1]) if len(sys.argv) > 1 else 4
     doc = tri_stress_doc(k)
     n = k * k * 960
-    out = f"/tmp/tri-stress-{n}.json"
-    json.dump(doc, open(out, "w"))
+    out = f"tri-stress-{n}.json"
+    with open(out, "w") as f:
+        json.dump(doc, f)
     print(f"{out}: {k * k} OBJ instances, {n} triangles")
 
 

@@ -19,7 +19,7 @@ from raytrace_tpu.engine.renderer import get_batch_ray_times
 from raytrace_tpu.models import compile_scene
 from raytrace_tpu.scene_file import SceneFile
 
-ASSETS = "/root/reference/assets"
+from raytrace_tpu.utils.paths import ASSETS_DIR as ASSETS
 
 CASES = [
     ("cornell-box-metal.json", 32, 32, 512, (64, 8), 8, None),
